@@ -5,19 +5,32 @@
 
 Phases, each reported on its own lines:
 
-1. the card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels from csrc/ with nvcc (seconds, ptxas register use);
-2. each kernel against its plain PyTorch version at the published width
-   (slow step at pos 1000 of a 2048-row cache; the fast loop), greedy and
-   sampled with shared Gumbel noise, 8 frames each: float32 must agree in
-   every token and code with max abs error <= 1e-3 on the float outputs;
-   bf16 (weights and cache) is reported.  Then kernel and plain times
-   (CUDA events) beside the least time the card could take;
-3. the main path: a full-width StreamSession from seeded random weights
-   (LM weights and KV cache in bf16, DSP in float32) streams 40 chunks
-   through two prompt refills; every output must be finite, 2048 samples,
-   silent only while the delay fills, and each kernel's launch count must
-   equal the frames decoded.  Reports p50/p90 chunk ms and a stage split;
+1. the card's name and power limit (nvidia-smi), and the build of the four
+   CUDA kernels from csrc/ with nvcc, one process per source, all started
+   together (seconds, ptxas register use);
+2. each kernel against its plain PyTorch version at the published width:
+   - the slow step at pos 1000 of a 2048-row cache and the fast loop,
+     greedy and sampled with shared Gumbel noise, 8 frames each: float32
+     must agree in every token and code with max abs error <= 1e-3 on the
+     float outputs; bf16 (weights and cache) is reported;
+   - the windowed-transformer ring step at counts 0, 1, 511, 512, 1000,
+     3583 and 3584 (the last re-bases the ring first), float32: max abs
+     error <= 1e-3 over the output row and both whole rings; bf16 is
+     reported;
+   - the fused HiFiGAN head over 8 consecutive chunks, each side carrying
+     its own state, float32: max abs error <= 1e-3 over the waveform and
+     every packed tail;
+   then kernel and plain times (CUDA events) beside the least time the
+   card could take for the same work;
+3. the main path, `tpu_optimized` (all four kernels): a full-width
+   StreamSession from seeded random weights (LM weights and KV cache in
+   bf16, the tokenizer and vocoder in float32) streams 40 chunks through
+   two prompt refills; every output must be finite, 2048 samples, silent
+   only while the delay fills; the slow, fast and head launches must each
+   equal the frames decoded and the ring-step launches the tokens encoded.
+   Reports p50/p90 chunk ms and a stage split.  Then a 12-chunk session
+   under `fast_slow_config` (the LM kernels only) keeps that path driven,
+   with its own launch check and stage split;
 4. a {"kernels": [...]} line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -39,6 +52,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+RING_COUNTS = (0, 1, 511, 512, 1000, 3583, 3584)
 SPF = 2048
 FRAME_MS = 1000.0 * SPF / 44100
 TOL = 1e-3
@@ -209,12 +224,203 @@ def time_kernels(cfg, device, pos: int):
     return out
 
 
+def bound(nbytes_: int, flops: int, peak: float):
+    t_bytes = 1e3 * nbytes_ / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / peak
+    return {"bound_ms": max(t_bytes, t_ops), "bytes": nbytes_, "flops": flops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "peak": peak}
+
+
+def wt_layers(wcfg, device, dtype, seed: int = 21):
+    """Seeded stacked ring-step layers, with norms and LayerScales away from
+    1 and 0.01 so that every term of the step shows in the output."""
+    from streamvoiceanon_tpu_torch import params as P
+
+    rng = np.random.default_rng(seed)
+    L, d, i = wcfg.n_layer, wcfg.dim, wcfg.intermediate_size
+    n = lambda *sh: (rng.standard_normal(sh) / np.sqrt(sh[-2])).astype(np.float32)
+    u = lambda lo, hi: rng.uniform(lo, hi, (L, d)).astype(np.float32)
+    layers = {"wqkv": {"w": n(L, d, 3 * d)}, "wo": {"w": n(L, d, d)},
+              "w1": {"w": n(L, d, i)}, "w3": {"w": n(L, d, i)}, "w2": {"w": n(L, i, d)},
+              "attention_norm": {"w": u(0.5, 1.5)}, "ffn_norm": {"w": u(0.5, 1.5)},
+              "attn_scale": u(0.1, 0.5), "ffn_scale": u(0.1, 0.5)}
+    return P.tree(layers, device, dtype)
+
+
+def ring_inputs(wcfg, device, dtype, count: int, g):
+    """A ring holding `count` written tokens (random rows), and a new row."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.wt_stream import maybe_rebase_ring
+
+    L, W, d = wcfg.n_layer, wcfg.window_size, wcfg.dim
+    kr, vr = (torch.randn((L, W, d), generator=g, device=device).to(dtype)
+              for _ in range(2))
+    x = torch.randn((1, d), generator=g, device=device).to(dtype)
+    kr = maybe_rebase_ring(kr, count, head_dim=wcfg.head_dim, n_head=wcfg.n_head,
+                           rope_base=wcfg.rope_base, table_rows=wcfg.rope_table_rows)
+    return x, kr, vr
+
+
+def compare_ring(wcfg, device, dtype, counts, check: bool):
+    """The ring step against its plain version at each count (the ring
+    re-based first where due).  Returns the max abs error over the output
+    row and both whole rings (the fresh rows included)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step, wt_stream_step_plain
+
+    layers = wt_layers(wcfg, device, dtype)
+    g = torch.Generator(device=device).manual_seed(9)
+    kw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
+              norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
+    worst = 0.0
+    for count in counts:
+        x, kr, vr = ring_inputs(wcfg, device, dtype, count, g)
+        ko = wt_stream_step(layers, x, kr.clone(), vr.clone(), count, **kw)
+        po = wt_stream_step_plain(layers, x, kr.clone(), vr.clone(), count, **kw)
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ko, po))
+        worst = max(worst, err)
+        if check and not err <= TOL:
+            raise AssertionError(f"ring step disagrees at count {count}: err {err:.3e}")
+    return worst
+
+
+def head_params(hcfg, device, seed: int = 31):
+    """Seeded head weights with random biases, and their packed form."""
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.ops.hifigan import packed_weights, stage_channels
+
+    rng = np.random.default_rng(seed)
+
+    def conv(k, ci, co):
+        return {"w": (rng.standard_normal((k, ci, co)) * 0.02).astype(np.float32),
+                "b": (rng.standard_normal(co) * 0.1).astype(np.float32)}
+
+    chans = stage_channels(hcfg)
+    h = {"conv_pre": conv(hcfg.pre_conv_kernel_size, hcfg.num_mels, chans[0][0]),
+         "ups": [conv(k, ci, co) for k, (ci, co) in zip(hcfg.upsample_kernel_sizes, chans)],
+         "resblocks": [[{"convs1": [conv(rk, co, co) for _ in rd],
+                         "convs2": [conv(rk, co, co) for _ in rd]}
+                        for rk, rd in zip(hcfg.resblock_kernel_sizes,
+                                          hcfg.resblock_dilation_sizes)]
+                       for _, co in chans],
+         "conv_post": conv(hcfg.post_conv_kernel_size, chans[-1][1], 1)}
+    p = P.hifigan_params(h, device)
+    return p, packed_weights(p, hcfg)
+
+
+def head_leaves(state):
+    return [state.pre, *state.ups, *state.res, state.post]
+
+
+def compare_head(hcfg, device, chunks: int, check: bool):
+    """The fused head against its plain version over `chunks` chunks, each
+    side carrying its own state.  Returns the max abs error over the
+    waveforms and every packed tail."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.hifigan import (
+        head_stream_step, head_stream_step_plain, init_packed_state)
+
+    _, pw = head_params(hcfg, device)
+    g = torch.Generator(device=device).manual_seed(13)
+    sk = sp = init_packed_state(hcfg, 1, device=device)
+    worst = 0.0
+    for c in range(chunks):
+        x = torch.randn((1, 4, hcfg.num_mels), generator=g, device=device)
+        sk, wk = head_stream_step(pw, sk, x, hcfg)
+        sp, wp = head_stream_step_plain(pw, sp, x, hcfg)
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            [wk, *head_leaves(sk)], [wp, *head_leaves(sp)]))
+        if not (torch.isfinite(wk).all() and wk.shape == (1, 4 * int(np.prod(
+                hcfg.upsample_rates)))):
+            raise AssertionError(f"head chunk {c}: shape {tuple(wk.shape)} or not finite")
+        worst = max(worst, err)
+        if check and not err <= TOL:
+            raise AssertionError(f"head disagrees at chunk {c}: err {err:.3e}")
+    return worst
+
+
+def time_ring_head(wcfg, hcfg, device, count: int):
+    """float32 (the main path's type): kernel and plain times and bounds of
+    the ring step at `count` and of the head at T0 = 4."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.hifigan import (
+        head_stream_step, head_stream_step_plain, init_packed_state)
+    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step, wt_stream_step_plain
+
+    dt = torch.float32
+    layers = wt_layers(wcfg, device, dt)
+    g = torch.Generator(device=device).manual_seed(17)
+    x, kr, vr = ring_inputs(wcfg, device, dt, count, g)
+    rkw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
+               norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
+    _, pw = head_params(hcfg, device)
+    st = init_packed_state(hcfg, 1, device=device)
+    xh = torch.randn((1, 4, hcfg.num_mels), generator=g, device=device)
+    out = {}
+    for name, kern, plain, n in (
+            ("ring", lambda: wt_stream_step(layers, x, kr, vr, count, **rkw),
+             lambda: wt_stream_step_plain(layers, x, kr, vr, count, **rkw), 30),
+            ("head", lambda: head_stream_step(pw, st, xh, hcfg),
+             lambda: head_stream_step_plain(pw, st, xh, hcfg), 30)):
+        p1 = cuda_ms(plain, 5)
+        k1 = cuda_ms(kern, n)
+        k2 = cuda_ms(kern, n)
+        p2 = cuda_ms(plain, 5)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ms_runs": [k1, k2],
+                     "plain_runs": [p1, p2]}
+    # ring: each weight byte once, the valid old rows of both rings, the
+    # fresh rows written, the row in and out, the RoPE row
+    L, W, d = wcfg.n_layer, wcfg.window_size, wcfg.dim
+    nv = min(count, W) - (1 if count >= W else 0)
+    mats = sum(layers[k]["w"].numel() for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    ring_bytes = (nbytes(*(layers[k]["w"] for k in ("wqkv", "wo", "w1", "w3", "w2",
+                                                     "attention_norm", "ffn_norm")),
+                         layers["attn_scale"], layers["ffn_scale"])
+                  + 2 * L * nv * d * 4 + 2 * L * d * 4 + 2 * d * 4 + 2 * d * 4)
+    ring_flops = 2 * mats + 4 * L * (nv + 1) * d
+    out["ring"].update(bound(ring_bytes, ring_flops, FP32_FLOPS))
+    # head: every packed weight once, the state in and out, x and the wave
+    w = [pw["pre_w"], pw["pre_b"], pw["post_w"], pw["post_b"]]
+    for s_ in pw["stages"]:
+        w += list(s_.values())
+    head_bytes = (nbytes(*w) + 2 * nbytes(*head_leaves(st)) + nbytes(xh)
+                  + 4 * 4 * int(np.prod(hcfg.upsample_rates)))
+    out["head"].update(bound(head_bytes, head_flops(hcfg, 4), FP32_FLOPS))
+    return out
+
+
+def head_flops(hcfg, T0: int) -> int:
+    """Multiply-adds x 2 of one head step on T0 frames."""
+    from streamvoiceanon_tpu_torch.ops.hifigan import stage_channels
+
+    chans = stage_channels(hcfg)
+    f = T0 * hcfg.pre_conv_kernel_size * hcfg.num_mels * chans[0][0]
+    T = T0
+    nconv = len(hcfg.resblock_dilation_sizes[0]) * 2
+    for s_, (ci, co) in zip(hcfg.upsample_rates, chans):
+        f += T * 2 * ci * s_ * co
+        T *= s_
+        f += sum(T * k * co * co * nconv for k in hcfg.resblock_kernel_sizes)
+    f += T * hcfg.post_conv_kernel_size * chans[-1][1]
+    return 2 * f
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
 
-def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int = 0):
+def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int = 0,
+                  converter=None):
+    """A StreamSession under `cfg`, on seeded random weights, or on the
+    weights of `converter` (built under a program set whose parameter tree
+    holds what `cfg` needs)."""
+    import dataclasses
+
     import torch
 
     from streamvoiceanon_tpu_torch import params as P
@@ -222,10 +428,13 @@ def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int 
     from streamvoiceanon_tpu_torch.utils import randparams as rp
 
     t0 = time.time()
-    cv = P.converter_from_numpy(
-        cfg, rp.tokenizer_params_np(cfg.tokenizer, seed + 1),
-        rp.vocoder_params_np(cfg.vocoder, seed + 2), rp.arvc_params_np(cfg.arvc, seed + 3),
-        device=device, lm_dtype=lm_dtype)
+    if converter is None:
+        cv = P.converter_from_numpy(
+            cfg, rp.tokenizer_params_np(cfg.tokenizer, seed + 1),
+            rp.vocoder_params_np(cfg.vocoder, seed + 2),
+            rp.arvc_params_np(cfg.arvc, seed + 3), device=device, lm_dtype=lm_dtype)
+    else:
+        cv = dataclasses.replace(converter, cfg=cfg)
     t_params = time.time() - t0
     rng = np.random.default_rng(seed)
     d = cfg.arvc.decoder
@@ -240,7 +449,7 @@ def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int 
         cache_dtype=cache_dtype)
     if str(device).startswith("cuda"):
         torch.cuda.synchronize()
-    return sess, rng, t_params, time.time() - t0
+    return sess, rng, t_params, time.time() - t0, cv
 
 
 def stream(sess, rng, n_chunks: int):
@@ -263,12 +472,14 @@ def stream(sess, rng, n_chunks: int):
 
 
 def stage_split(sess, rng, n_chunks: int):
-    """Device-synchronized times of the three stages over n_chunks."""
+    """Device-synchronized medians over n_chunks of the three stages and of
+    the background refill's history prefill (`refill_history`, run on the
+    chunks of the refill window), and how many chunks ran each."""
     import torch
 
     from streamvoiceanon_tpu_torch.models import arvc, tokenizer_stream, vocoder
 
-    acc = {"encode": [], "lm_decode": [], "vocode": []}
+    acc = {"encode": [], "lm_decode": [], "vocode": [], "refill_history": []}
     originals = []
 
     def timed(mod, name, key):
@@ -288,12 +499,17 @@ def stage_split(sess, rng, n_chunks: int):
     timed(tokenizer_stream, "encode_stream", "encode")
     timed(arvc, "decode_one", "lm_decode")
     timed(vocoder, "decode_stream", "vocode")
+    timed(arvc, "prefill_history", "refill_history")
     try:
         stream(sess, rng, n_chunks)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
-    return {k: float(np.median(v)) for k, v in acc.items() if v}
+    return {k: (float(np.median(v)), len(v)) for k, v in acc.items() if v}
+
+
+def fmt_split(split) -> str:
+    return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
 
 def main() -> int:
@@ -311,7 +527,9 @@ def main() -> int:
         from streamvoiceanon_tpu_torch import resolve_device
         from streamvoiceanon_tpu_torch.ops import _build
         from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
+        from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
         from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
+        from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})",
               file=sys.stderr)
@@ -331,8 +549,10 @@ def main() -> int:
         log(f"[1]   {name}: {len(regs)} kernels, max {max(regs, default=0)} registers, "
             f"{spills} bytes spill stores")
 
-    cfg = C.fast_slow_config(C.PipelineConfig())
+    cfg = C.tpu_optimized(C.PipelineConfig())
     d = cfg.arvc.decoder
+    wcfg = cfg.tokenizer.transformer
+    hcfg = cfg.vocoder.head
 
     # ---- phase 2
     t0 = time.time()
@@ -346,53 +566,85 @@ def main() -> int:
         f"max abs err {st16['slow']['err']:.3e}; fast loop codes "
         f"{st16['fast']['agree']}/{st16['fast']['n']}, max abs err "
         f"{st16['fast']['err']:.3e} (reported)")
+    st32["ring"] = {"err": compare_ring(wcfg, device, torch.float32, RING_COUNTS, True)}
+    ring16 = compare_ring(wcfg, device, torch.bfloat16, RING_COUNTS, False)
+    log(f"[2] ring step at counts {list(RING_COUNTS)}: f32 max abs err "
+        f"{st32['ring']['err']:.3e} (bound {TOL}); bf16 max abs err {ring16:.3e} (reported)")
+    st32["head"] = {"err": compare_head(hcfg, device, 8, True)}
+    log(f"[2] head over 8 chunks, state carried: f32 max abs err "
+        f"{st32['head']['err']:.3e} (bound {TOL})")
     tk = time_kernels(d, device, 1000)
-    for name in ("slow", "fast"):
+    tk.update(time_ring_head(wcfg, hcfg, device, 1000))
+    for name, what in (("slow", "bf16 pos 1000"), ("fast", "bf16"),
+                       ("ring", "f32 count 1000"), ("head", "f32 T0 4")):
         t = tk[name]
-        log(f"[2] {name} bf16 pos 1000: kernel {t['ms']:.4f} ms (runs "
+        peak = f", peak {t['peak'] / 1e12:.0f} TFLOP/s" if "peak" in t else ""
+        log(f"[2] {name} {what}: kernel {t['ms']:.4f} ms (runs "
             f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, "
-            f"{t['flops']} flop)")
+            f"{t['flops']} flop{peak})")
     log(f"[2] done in {time.time() - t0:.1f} s")
 
-    # ---- phase 3
+    # ---- phase 3: tpu_optimized, then a short fast+slow session
+    wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
+                "head": head_stream_step}
     scfg = C.StreamConfig(max_prompt_frames=32, max_seq_frames=64, buffer_frames=8,
                           delay=2)
-    sess, rng, t_par, t_pre = build_session(cfg, device, scfg, C.SamplingConfig(),
-                                            torch.bfloat16, torch.bfloat16)
+    sess, rng, t_par, t_pre, cv = build_session(cfg, device, scfg, C.SamplingConfig(),
+                                                torch.bfloat16, torch.bfloat16)
     log(f"[3] params {t_par:.1f} s, session set-up (prompt prefill) {t_pre:.2f} s")
     stream(sess, rng, 4)  # warm-up: delay fill, delay prefill, first decodes
-    slow_decode_step.launches = 0
-    fast_decode.launches = 0
-    frames0, refills0 = sess.frames_decoded, sess.refill_count
+    for w in wrappers.values():
+        w.launches = 0
+    frames0, refills0, tokens0 = sess.frames_decoded, sess.refill_count, sess.tokens_seen
     n_chunks = 40
     times = stream(sess, rng, n_chunks)
-    launches = {"slow": slow_decode_step.launches, "fast": fast_decode.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     frames = sess.frames_decoded - frames0
+    tokens = sess.tokens_seen - tokens0
     refills = sess.refill_count - refills0
-    if launches["slow"] != frames or launches["fast"] != frames or frames != n_chunks:
-        raise AssertionError(f"launch counts {launches} vs {frames} frames decoded")
+    if (any(launches[k] != frames for k in ("slow", "fast", "head"))
+            or launches["ring"] != tokens or frames != n_chunks):
+        raise AssertionError(f"launch counts {launches} vs {frames} frames decoded and "
+                             f"{tokens} tokens encoded")
     if refills < 2:
         raise AssertionError(f"only {refills} prompt refills in {n_chunks} chunks")
     p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
-    log(f"[3] {n_chunks} chunks, {frames} frames, {refills} refills; launches {launches}; "
-        f"chunk ms p50 {p50:.3f} p90 {p90:.3f} max {max(times):.3f}; p50 / "
-        f"{FRAME_MS:.2f} ms = {p50 / FRAME_MS:.4f}")
+    log(f"[3] tpu_optimized: {n_chunks} chunks, {frames} frames, {tokens} tokens, "
+        f"{refills} refills; launches {launches}; chunk ms p50 {p50:.3f} p90 {p90:.3f} "
+        f"max {max(times):.3f}; p50 / {FRAME_MS:.2f} ms = {p50 / FRAME_MS:.4f}")
     split = stage_split(sess, rng, 10)
-    log("[3] stage medians (synchronized): " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in split.items()))
+    log("[3] tpu_optimized stage medians over 10 chunks (synchronized): " + fmt_split(split))
+
+    fs_cfg = C.fast_slow_config(C.PipelineConfig())
+    fsess, frng, _, _, _ = build_session(fs_cfg, device, scfg, C.SamplingConfig(),
+                                         torch.bfloat16, torch.bfloat16, converter=cv)
+    stream(fsess, frng, 4)
+    for w in wrappers.values():
+        w.launches = 0
+    f0 = fsess.frames_decoded
+    ftimes = stream(fsess, frng, 12)
+    flaunch = {k: w.launches for k, w in wrappers.items()}
+    fframes = fsess.frames_decoded - f0
+    if flaunch != {"slow": fframes, "fast": fframes, "ring": 0, "head": 0}:
+        raise AssertionError(f"fast+slow launch counts {flaunch} vs {fframes} frames")
+    fsplit = stage_split(fsess, frng, 10)
+    log(f"[3] fast_slow: 12 chunks, {fframes} frames; launches {flaunch}; chunk ms p50 "
+        f"{np.percentile(ftimes, 50):.3f}; stage medians over 10 chunks (synchronized): "
+        + fmt_split(fsplit))
 
     # ---- phase 4
     kernels = []
-    for name, src, rep in (
-            ("slow_decode_step", "streamvoiceanon_tpu_torch/csrc/slow_decode.cu",
-             "streamvoiceanon_tpu/ops/pallas_slow_decode.py:248"),
-            ("fast_decode", "streamvoiceanon_tpu_torch/csrc/fast_decode.cu",
-             "streamvoiceanon_tpu/ops/pallas_fast_decode.py:260")):
-        key = "slow" if name.startswith("slow") else "fast"
+    for key, name, src, rep in (
+            ("slow", "slow_decode_step", "slow_decode.cu", "pallas_slow_decode.py:248"),
+            ("fast", "fast_decode", "fast_decode.cu", "pallas_fast_decode.py:260"),
+            ("ring", "wt_stream_step", "wt_stream.cu", "pallas_wt_stream.py:218"),
+            ("head", "head_stream_step", "hifigan_head.cu", "pallas_hifigan.py:353")):
         t = tk[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "name": name, "route": "cuda",
+            "source": f"streamvoiceanon_tpu_torch/csrc/{src}",
+            "replaces": f"streamvoiceanon_tpu/ops/{rep}",
             "launches": launches[key], "max_abs_err": st32[key]["err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})

@@ -4,8 +4,9 @@ The port's own copy of `streamvoiceanon_tpu.config` (the port imports
 nothing of the JAX package): the same frozen dataclasses with the same
 defaults, which reproduce the published model family
 `config_firefly_arvcasr_8192_delay0_8`.  The flag names are kept, so one
-configuration describes both packages; `fast_slow_config` names the
-program set the port implements so far.
+configuration describes both packages.  `tpu_optimized` is the program
+set of the main path; `fast_slow_config` keeps the tokenizer ring and the
+HiFiGAN head on their plain paths.
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ class WindowedTransformerConfig:
     # deployed tokenizer config)
     dw_conv: bool = False
     conv_kernel_size: int = 5
-    # Streaming ring step on the JAX package's ring kernel, with a flat
-    # circular absolute-rope ring layout.  Not ported yet: the port's
-    # tokenizer stream refuses it.
+    # Streaming ring step on its kernel (ops/wt_stream.py), with a flat
+    # circular absolute-rope ring layout (L, B, W, n_head*head_dim).  The
+    # kernel runs at batch 1; batch > 1 runs the plain circular step.
     use_pallas_stream: bool = False
     # rope-table rows for the circular layout: effective positions live in
     # [W, rope_table_rows); the ring is re-based (one elementwise rotation)
@@ -236,9 +237,9 @@ class HiFiGANConfig:
     pre_conv_kernel_size: int = 13
     post_conv_kernel_size: int = 13
     hop_length: int = 512
-    # The whole streaming head on the JAX package's fused head kernel, with
-    # packed per-stage tail buffers.  Not ported yet: the port's vocoder
-    # stream refuses it.
+    # The whole streaming head on its fused kernel (ops/hifigan.py), with
+    # packed per-stage tail buffers (PackedHeadState).  Batch 1 and
+    # k == 2 * stride upsamples; otherwise the dict-of-tails path.
     use_pallas_stream: bool = False
 
 
@@ -421,10 +422,9 @@ def from_fields(cfg):
 
 
 def fast_slow_config(cfg: PipelineConfig) -> PipelineConfig:
-    """The program set this port runs: the dual-AR slow step and the fast
-    codebook loop on their hand-written kernels (flat KV-cache layout),
-    with the tokenizer's windowed transformer and the HiFiGAN head on
-    their plain paths."""
+    """The dual-AR slow step and the fast codebook loop on their
+    hand-written kernels (flat KV-cache layout), with the tokenizer's
+    windowed transformer and the HiFiGAN head on their plain paths."""
     return replace(
         cfg,
         arvc=replace(cfg.arvc, decoder=replace(
@@ -435,10 +435,12 @@ def fast_slow_config(cfg: PipelineConfig) -> PipelineConfig:
 
 
 def tpu_optimized(cfg: PipelineConfig) -> PipelineConfig:
-    """The JAX package's full kernel set: the two LM kernels plus the
-    windowed-transformer ring kernel and the fused HiFiGAN head.  The port
-    implements the first two so far (`fast_slow_config`); its tokenizer
-    and vocoder stream states refuse the other two flags."""
+    """The program set the JAX package serves with, and the port's main
+    path: the two LM kernels plus the windowed-transformer ring kernel
+    (flat circular ring) and the fused HiFiGAN head (packed state), all
+    four on hand-written kernels.  The ConvNeXt encoder kernel
+    (`use_pallas_encoder`) and the per-head decode cache
+    (`use_pallas_decode`) stay off, as in the JAX package."""
     return replace(
         cfg,
         arvc=replace(cfg.arvc, decoder=replace(

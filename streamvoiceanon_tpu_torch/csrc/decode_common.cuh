@@ -1,13 +1,15 @@
-// Device kernels shared by the dual-AR slow step (slow_decode.cu) and the
-// fast codebook loop (fast_decode.cu).
+// Device kernels shared by the dual-AR slow step (slow_decode.cu), the fast
+// codebook loop (fast_decode.cu) and the windowed-transformer ring step
+// (wt_stream.cu, which uses the matvec and its own ring attention).
 //
-// Three kernels, launched in sequence by the two host entry points:
+// Three kernels, launched in sequence by the host entry points:
 //
 //   matvec_kernel   y = x @ W for 1 or 2 input rows, W (K, N) row-major in
 //                   float32 or bf16, float32 accumulation.  Optional fused
-//                   RMSNorm of the input, and one of four epilogues: store,
-//                   store as float32 logits, residual add, SwiGLU gate (two
-//                   weight matrices in one launch).  Split over K across
+//                   RMSNorm of the input, and one of five epilogues: store,
+//                   store as float32 logits, residual add, residual add of
+//                   the product times a per-column LayerScale, SwiGLU gate
+//                   (two weight matrices in one launch).  Split over K across
 //                   blocks; the last block of a column tile to finish sums
 //                   the K-chunks in a fixed order and applies the epilogue,
 //                   so every weight byte is read once per call, serves both
@@ -105,13 +107,16 @@ constexpr int MV_TX = 8;    // threads across columns (VEC columns each)
 constexpr int MV_TY = 32;   // threads across the K-chunk
 constexpr int MV_KC = 128;  // K rows per block
 
-enum Epilogue { EPI_STORE = 0, EPI_STORE_F32 = 1, EPI_RESID = 2, EPI_SWIGLU = 3 };
+enum Epilogue {
+  EPI_STORE = 0, EPI_STORE_F32 = 1, EPI_RESID = 2, EPI_SWIGLU = 3, EPI_SCALED_RESID = 4
+};
 
 template <typename W, int R, int EPI>
 __global__ void __launch_bounds__(MV_TX * MV_TY)
 matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
               const W* __restrict__ wa, const W* __restrict__ wb, int K, int N,
-              float* __restrict__ partials, int* __restrict__ counters, void* out) {
+              float* __restrict__ partials, int* __restrict__ counters, void* out,
+              const W* __restrict__ scale) {
   constexpr int VEC = Vec<W>::N;
   constexpr int TCOLS = MV_TX * VEC;
   constexpr int NMAT = EPI == EPI_SWIGLU ? 2 : 1;
@@ -207,6 +212,9 @@ matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
     } else if constexpr (EPI == EPI_RESID) {
       W* h = static_cast<W*>(out);
       h[o] = from_f<W>(to_f<W>(h[o]) + rnd<W>(s[0]));
+    } else if constexpr (EPI == EPI_SCALED_RESID) {
+      W* h = static_cast<W*>(out);
+      h[o] = from_f<W>(to_f<W>(h[o]) + rnd<W>(to_f<W>(scale[n]) * rnd<W>(s[0])));
     } else {
       const float a = rnd<W>(s[0]);
       const float silu = a / (1.f + expf(-a));
@@ -226,12 +234,13 @@ inline size_t matvec_tiles(int N) {
 template <typename W, int R, int EPI>
 inline cudaError_t launch_matvec(const W* x, const W* norm_w, float eps, const W* wa,
                                  const W* wb, int K, int N, float* partials,
-                                 int* counters, void* out, cudaStream_t st) {
+                                 int* counters, void* out, cudaStream_t st,
+                                 const W* scale = nullptr) {
   dim3 grid((unsigned)matvec_tiles<W>(N), (unsigned)((K + MV_KC - 1) / MV_KC),
             EPI == EPI_SWIGLU ? 2 : 1);
   dim3 block(MV_TX, MV_TY);
   matvec_kernel<W, R, EPI><<<grid, block, 0, st>>>(x, norm_w, eps, wa, wb, K, N,
-                                                   partials, counters, out);
+                                                   partials, counters, out, scale);
   return cudaGetLastError();
 }
 

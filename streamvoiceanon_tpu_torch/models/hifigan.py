@@ -1,10 +1,15 @@
-"""Causal HiFiGAN generator head, streaming form (dict-of-tails state).
+"""Causal HiFiGAN generator head, streaming form.
 
 As `streamvoiceanon_tpu.models.hifigan`: conv_pre (causal) -> [silu ->
 FishTransConv upsample -> mean of three ResBlocks] per stage -> silu ->
 conv_post -> tanh.  Each ResBlock is 3 x (silu -> dilated causal conv ->
 silu -> dilated causal conv) with residual; every conv carries its input
 tail, so the stream equals the offline head.
+
+The state is a dict of tails, or with `use_pallas_stream` at batch 1 (and
+k == 2 * stride upsamples) the fused head kernel's `PackedHeadState`
+(ops/hifigan.py); a packed state at batch > 1 runs the dict path and is
+repacked.
 """
 
 from __future__ import annotations
@@ -16,12 +21,19 @@ import torch.nn.functional as F
 
 from streamvoiceanon_tpu_torch.config import HiFiGANConfig
 from streamvoiceanon_tpu_torch.ops import conv as convops
+from streamvoiceanon_tpu_torch.ops import hifigan as headops
+
+
+def packed_eligible(cfg: HiFiGANConfig, batch: int) -> bool:
+    """Whether a stream state of this batch takes the packed layout."""
+    return cfg.use_pallas_stream and batch == 1 and all(
+        k == 2 * s for k, s in zip(cfg.upsample_kernel_sizes, cfg.upsample_rates))
 
 
 def hifigan_init_stream(p: Dict, cfg: HiFiGANConfig, batch: int = 1,
-                        dtype=torch.float32, device=None) -> Dict:
-    if cfg.use_pallas_stream:
-        raise NotImplementedError("the packed HiFiGAN head state is not ported yet")
+                        dtype=torch.float32, device=None):
+    if packed_eligible(cfg, batch):
+        return headops.init_packed_state(cfg, batch, dtype, device)
 
     def cs(conv_p, dilation=1):
         _, cin, k = conv_p["w"].shape
@@ -59,8 +71,20 @@ def resblock_apply_stream(p: Dict, state: Dict, x: torch.Tensor, dilations):
     return {"convs1": new1, "convs2": new2}, x
 
 
-def hifigan_apply_stream(p: Dict, cfg: HiFiGANConfig, state: Dict, x: torch.Tensor):
-    """(state, (B, T, num_mels)) -> (state', (B, T * hop))."""
+def hifigan_apply_stream(p: Dict, cfg: HiFiGANConfig, state, x: torch.Tensor,
+                         packed_w: Dict = None):
+    """(state, (B, T, num_mels)) -> (state', (B, T * hop)).
+
+    A `PackedHeadState` at batch 1 runs the fused head kernel with
+    `packed_w` (ops.hifigan.packed_weights, made once per parameter tree;
+    packed here when not given); at batch > 1 it is unpacked, run on the
+    dict path and repacked."""
+    if isinstance(state, headops.PackedHeadState):
+        if x.shape[0] == 1:
+            pw = packed_w if packed_w is not None else headops.packed_weights(p, cfg)
+            return headops.head_stream_step(pw, state, x, cfg)
+        nd, wav = hifigan_apply_stream(p, cfg, headops.unpack_head_state(state, cfg), x)
+        return headops.pack_head_state(nd, cfg), wav
     new_state: Dict = {"ups": [], "res": []}
     new_state["conv_pre"], x = convops.causal_conv1d_stream(
         state["conv_pre"], x, p["conv_pre"]["w"], p["conv_pre"]["b"])

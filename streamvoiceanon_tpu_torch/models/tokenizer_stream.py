@@ -1,12 +1,20 @@
 """Incremental content-tokenizer encode, as
-`streamvoiceanon_tpu.models.tokenizer_stream` (rotated-frame ring layout).
+`streamvoiceanon_tpu.models.tokenizer_stream`.
 
 Carries an STFT sample tail, conv input tails for the ConvNeXt backbone and
-the two stride-2 downsampling convs, and a rotated-frame KV ring for the
-window-limited transformer: RoPE scores depend only on the query-key
-distance, so cached keys are kept rotated to a fixed query frame and every
-step rotates each cached key by one negative position step.  The stream
-equals offline encoding for any stream length.
+the two stride-2 downsampling convs, and a KV ring for the window-limited
+transformer in one of two layouts:
+
+* rotated-frame (L, B, H, W, D): RoPE scores depend only on the query-key
+  distance, so cached keys are kept rotated to a fixed query frame and
+  every step rotates each cached key by one negative position step;
+* with `WindowedTransformerConfig.use_pallas_stream`, flat circular
+  (L, B, W, H*D) rows with absolute RoPE, read-only but for one fresh row
+  per layer (ops/wt_stream.py): the ring-step kernel at batch 1, its plain
+  batched form otherwise.  `convert_ring_layout` moves a live ring between
+  the two.
+
+Either way the stream equals offline encoding for any stream length.
 
 Chunk unit: one 2048-sample frame -> 4 mel hops -> 1 content token.
 """
@@ -24,6 +32,7 @@ from streamvoiceanon_tpu_torch.config import TokenizerConfig, WindowedTransforme
 from streamvoiceanon_tpu_torch.models import convnext
 from streamvoiceanon_tpu_torch.ops import conv as convops
 from streamvoiceanon_tpu_torch.ops import quantizers, stft
+from streamvoiceanon_tpu_torch.ops import wt_stream as wts
 from streamvoiceanon_tpu_torch.ops.norm import layer_norm, rms_norm
 
 
@@ -99,13 +108,15 @@ def convnext_encoder_apply_stream(p: Dict, cfg, state: Dict, x: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Rotated-frame KV ring for the window-limited transformer
+# KV ring for the window-limited transformer
 # ---------------------------------------------------------------------------
 
 
 class RingState(NamedTuple):
-    k_ring: torch.Tensor  # (L, B, H, W, D) keys rotated to the fixed query frame
-    v_ring: torch.Tensor  # (L, B, H, W, D)
+    # (L, B, H, W, D) keys rotated to the fixed query frame, or with
+    # use_pallas_stream (L, B, W, H*D) circular rows with absolute RoPE
+    k_ring: torch.Tensor
+    v_ring: torch.Tensor  # same layout as k_ring
     count: int  # tokens seen so far (host counter: the trajectory is known)
 
 
@@ -127,22 +138,78 @@ def _rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
 
 def ring_init(cfg: WindowedTransformerConfig, batch: int = 1, dtype=torch.float32,
               device=None) -> RingState:
-    if cfg.use_pallas_stream or cfg.dw_conv:
-        raise NotImplementedError(
-            "the circular ring layout (use_pallas_stream) and the LConv1d "
-            "branch (dw_conv) are not ported yet")
-    shape = (cfg.n_layer, batch, cfg.n_head, cfg.window_size, cfg.head_dim)
+    if cfg.dw_conv:
+        raise NotImplementedError("the LConv1d branch (dw_conv) is not ported yet")
+    W = cfg.window_size
+    if cfg.use_pallas_stream:
+        shape = (cfg.n_layer, batch, W, cfg.n_head * cfg.head_dim)
+    else:
+        shape = (cfg.n_layer, batch, cfg.n_head, W, cfg.head_dim)
     return RingState(torch.zeros(shape, dtype=dtype, device=device),
                      torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def _roll_w(r: torch.Tensor, shift: int) -> torch.Tensor:
+    """Roll the W axis (-2) right by `shift`."""
+    return torch.roll(r, shift, dims=-2)
+
+
+def convert_ring_layout(state: RingState, cfg: WindowedTransformerConfig) -> RingState:
+    """Re-lay a RingState out to match cfg.use_pallas_stream.
+
+    Rotated-frame (L, B, H, W, D) <-> circular absolute-RoPE (L, B, W, H*D).
+    Rotated slot w holds token t = count - W + w at angle t - (count - 1);
+    the circular store wants angle W + (t mod R) - R * (rebases since t);
+    their difference is the constant W + ((count - 1) mod R) for every
+    valid slot, so the two differ by one rotation plus a slot permutation
+    (a roll by count mod W)."""
+    want_flat = cfg.use_pallas_stream and not cfg.dw_conv
+    kr, cnt = state.k_ring, state.count
+    if want_flat == (kr.ndim == 4):
+        return state
+    W = cfg.window_size
+    H, D = cfg.n_head, cfg.head_dim
+    cos, sin = wts.table_tensors(cfg.rope_table_rows, D, H, cfg.rope_base, kr.device)
+    delta = W + (cnt - 1) % (cfg.rope_table_rows - W)
+    shift = cnt % W
+    if want_flat:
+        L, B = kr.shape[:2]
+        to_flat = lambda r: r.transpose(2, 3).reshape(L, B, W, H * D)
+        k = wts.rope_rows(to_flat(kr), cos[delta], sin[delta])
+        return state._replace(k_ring=_roll_w(k, shift),
+                              v_ring=_roll_w(to_flat(state.v_ring), shift))
+    L, B = kr.shape[:2]
+    to_headed = lambda r: r.reshape(L, B, W, H, D).transpose(2, 3).contiguous()
+    # the inverse rotation: the conjugate row
+    k = wts.rope_rows(_roll_w(kr, -shift), cos[delta], -sin[delta])
+    return state._replace(k_ring=to_headed(k),
+                          v_ring=to_headed(_roll_w(state.v_ring, -shift)))
 
 
 def transformer_stream_step(params: Dict, cfg: WindowedTransformerConfig,
                             state: RingState,
                             x: torch.Tensor) -> Tuple[RingState, torch.Tensor]:
-    """One new token (B, 1, dim) through all layers with the rotated ring.
+    """One new token (B, 1, dim) through all layers.
 
-    The query sits at relative position 0; the cached key of age a carries
-    rotation angle -a, applied one step per token."""
+    Flat ring: re-base if due, then the ring-step kernel at batch 1 (its
+    plain batched form otherwise), which writes the fresh rows in place.
+    Rotated ring: the query sits at relative position 0; the cached key of
+    age a carries rotation angle -a, applied one step per token."""
+    layers = params["layers"]
+    if state.k_ring.ndim == 4:
+        kw = dict(n_head=cfg.n_head, head_dim=cfg.head_dim, rope_base=cfg.rope_base,
+                  table_rows=cfg.rope_table_rows)
+        k_in = wts.maybe_rebase_ring(state.k_ring, state.count, **kw)
+        if x.shape[0] == 1 and cfg.n_head * cfg.head_dim == cfg.dim:
+            h, k_ring, v_ring = wts.wt_stream_step(
+                layers, x[0], k_in[:, 0], state.v_ring[:, 0], state.count,
+                norm_eps=cfg.norm_eps, **kw)
+            k_ring, v_ring, h = k_ring[:, None], v_ring[:, None], h[None]
+        else:
+            h, k_ring, v_ring = wts.circular_stream_step(
+                layers, x, k_in, state.v_ring, state.count, norm_eps=cfg.norm_eps, **kw)
+        h = rms_norm(h, params["final_norm"]["w"], cfg.norm_eps)
+        return RingState(k_ring, v_ring, state.count + 1), h
     W, H, D = cfg.window_size, cfg.n_head, cfg.head_dim
     dev = x.device
     unit = torch.from_numpy(_unit_rotation(D, cfg.rope_base)).to(dev)
@@ -153,7 +220,10 @@ def transformer_stream_step(params: Dict, cfg: WindowedTransformerConfig,
     v_new = torch.empty_like(state.v_ring)
     h = x
     B = h.shape[0]
-    for l, lp in enumerate(params["layers"]):
+    for l in range(cfg.n_layer):
+        # layer l of the stacked tree
+        lp = {name: t[l] if torch.is_tensor(t) else {"w": t["w"][l]}
+              for name, t in layers.items()}
         hn = rms_norm(h, lp["attention_norm"]["w"], cfg.norm_eps)
         q, k, v = torch.chunk(hn @ lp["wqkv"]["w"], 3, dim=-1)
         # rotate every cached key one step into the past, then append the

@@ -4,7 +4,9 @@
 codes -> grouped residual FSQ decode -> two stride-2 causal upsampling
 stages (transposed conv + ConvNeXt block) -> HiFiGAN head -> 2048 samples
 per frame.  Every conv carries its input tail, so the stream equals the
-offline decode.
+offline decode.  With `HiFiGANConfig.use_pallas_stream` the head runs the
+fused head kernel on its packed state, with the weights packed once into
+`params["head_packed"]` (params.converter_from_numpy).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from streamvoiceanon_tpu_torch.config import VocoderConfig
 from streamvoiceanon_tpu_torch.models import convnext, hifigan
 from streamvoiceanon_tpu_torch.ops import conv as convops
+from streamvoiceanon_tpu_torch.ops import hifigan as headops
 from streamvoiceanon_tpu_torch.ops import quantizers
 
 
@@ -39,9 +42,29 @@ def init_stream_state(params: Dict, cfg: VocoderConfig, batch: int = 1,
     }
 
 
+def convert_head_layout(state: Dict, hcfg, target_batch: int = 0) -> Dict:
+    """Move the head's stream state between the dict-of-tails layout and the
+    fused kernel's `PackedHeadState`, as `hcfg.use_pallas_stream` and the
+    batch ask.  `target_batch` overrides the state's own batch in that
+    check (a batch-1 state about to be tiled to more streams unpacks
+    first: the packed kernel takes batch 1 only)."""
+    head = state["head"]
+    packed = isinstance(head, headops.PackedHeadState)
+    batch = target_batch or (head.pre.shape[0] if packed
+                             else head["conv_pre"].tail.shape[0])
+    want = hifigan.packed_eligible(hcfg, batch)
+    if want and not packed:
+        return {**state, "head": headops.pack_head_state(head, hcfg)}
+    if not want and packed:
+        return {**state, "head": headops.unpack_head_state(head, hcfg)}
+    return state
+
+
 def decode_stream(params: Dict, cfg: VocoderConfig, state: Dict, codes: torch.Tensor):
     """(state, codes (B, nq, k)) -> (state', wav (B, k*2048))."""
-    head_dtype = state["head"]["conv_pre"].tail.dtype
+    head = state["head"]
+    head_dtype = (head.pre.dtype if isinstance(head, headops.PackedHeadState)
+                  else head["conv_pre"].tail.dtype)
     z = quantizers.grouped_residual_fsq_decode(
         params["fsq"], codes.transpose(1, 2), cfg.quantizer.n_groups,
         cfg.quantizer.levels, cfg.quantizer.n_codebooks,
@@ -54,5 +77,6 @@ def decode_stream(params: Dict, cfg: VocoderConfig, state: Dict, codes: torch.Te
             st["conv"], z, stage["conv"]["w"], stage["conv"]["b"], stride=f)
         bs, z = convnext.convnext_block_apply_stream(stage["block"], st["block"], z)
         new_up.append({"conv": cs, "block": bs})
-    hs, wav = hifigan.hifigan_apply_stream(params["head"], cfg.head, state["head"], z)
+    hs, wav = hifigan.hifigan_apply_stream(params["head"], cfg.head, head, z,
+                                           packed_w=params.get("head_packed"))
     return {"upsample": new_up, "head": hs}, wav

@@ -35,6 +35,9 @@ SIGNATURES = {
                     + [_F, _F, _F, _I, _P]),
     "fast_decode": ("svd_fast_decode",
                     [_I] + [_P] * 24 + [_I] * 8 + [_F, _F, _F, _I, _P]),
+    "wt_stream": ("svd_wt_stream_step",
+                  [_I, _I] + [_P] * 14 + [_I, _I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "hifigan_head": ("svd_hifigan_head_step", [_P] * 6 + [_I] + [_P] * 2),
 }
 
 _lock = threading.Lock()

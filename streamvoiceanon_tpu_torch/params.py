@@ -13,7 +13,11 @@ layers).  Conv weights change from the channels-last layouts of
 
 Only the parts of the tokenizer and vocoder trees the streaming path uses
 are carried (the pre-quantization transformer, not the post one; the
-decode side of the codec, not its encoder).
+decode side of the codec, not its encoder).  Layer lists are stacked once
+here into one tree of (L, ...) arrays (the dual-AR layers and the windowed
+transformer's), and with `HiFiGANConfig.use_pallas_stream` the head's
+weights are packed once into `vocoder_params["head_packed"]` for the fused
+head kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from streamvoiceanon_tpu_torch import resolve_device
 from streamvoiceanon_tpu_torch.config import PipelineConfig
+from streamvoiceanon_tpu_torch.ops import hifigan as headops
 
 
 def _np(a) -> np.ndarray:
@@ -90,6 +95,14 @@ def _block(p, device, dtype):
     return out
 
 
+def windowed_transformer_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The windowed transformer with its layer list stacked: every leaf of
+    `layers` gains a leading (L,) axis."""
+    q = dict(p)
+    q["layers"] = _stack(p["layers"])
+    return tree(q, device, dtype)
+
+
 def tokenizer_params(p: Dict, device, dtype=torch.float32) -> Dict:
     bb = p["backbone"]
     backbone = {}
@@ -108,30 +121,38 @@ def tokenizer_params(p: Dict, device, dtype=torch.float32) -> Dict:
         "downsample": [{"conv": _conv(s["conv"], device, dtype),
                         "block": _block(s["block"], device, dtype)}
                        for s in p["downsample"]],
-        "pre_module": tree(p["pre_module"], device, dtype),
+        "pre_module": windowed_transformer_params(p["pre_module"], device, dtype),
         "lfq": tree(p["lfq"], device, dtype),
     }
 
 
-def vocoder_params(p: Dict, device, dtype=torch.float32) -> Dict:
-    h = p["head"]
+def hifigan_params(h: Dict, device, dtype=torch.float32) -> Dict:
     return {
+        "conv_pre": _conv(h["conv_pre"], device, dtype),
+        "ups": [_tconv(u, device, dtype) for u in h["ups"]],
+        "resblocks": [
+            [{"convs1": [_conv(c, device, dtype) for c in rb["convs1"]],
+              "convs2": [_conv(c, device, dtype) for c in rb["convs2"]]}
+             for rb in stage]
+            for stage in h["resblocks"]
+        ],
+        "conv_post": _conv(h["conv_post"], device, dtype),
+    }
+
+
+def vocoder_params(p: Dict, device, dtype=torch.float32, head_cfg=None) -> Dict:
+    """The decode side of the codec; with `head_cfg.use_pallas_stream` also
+    the head's weights packed for the fused head kernel (`head_packed`)."""
+    out = {
         "upsample": [{"conv": _tconv(s["conv"], device, dtype),
                       "block": _block(s["block"], device, dtype)}
                      for s in p["upsample"]],
         "fsq": tree(p["fsq"], device, dtype),
-        "head": {
-            "conv_pre": _conv(h["conv_pre"], device, dtype),
-            "ups": [_tconv(u, device, dtype) for u in h["ups"]],
-            "resblocks": [
-                [{"convs1": [_conv(c, device, dtype) for c in rb["convs1"]],
-                  "convs2": [_conv(c, device, dtype) for c in rb["convs2"]]}
-                 for rb in stage]
-                for stage in h["resblocks"]
-            ],
-            "conv_post": _conv(h["conv_post"], device, dtype),
-        },
+        "head": hifigan_params(p["head"], device, dtype),
     }
+    if head_cfg is not None and head_cfg.use_pallas_stream:
+        out["head_packed"] = headops.packed_weights(out["head"], head_cfg)
+    return out
 
 
 def dual_ar_params(p: Dict, device, dtype=torch.float32) -> Dict:
@@ -174,7 +195,7 @@ def converter_from_numpy(cfg: PipelineConfig, tokenizer_np: Dict, vocoder_np: Di
     return Converter(
         cfg=cfg,
         tokenizer_params=tokenizer_params(tokenizer_np, dev),
-        vocoder_params=vocoder_params(vocoder_np, dev),
+        vocoder_params=vocoder_params(vocoder_np, dev, head_cfg=cfg.vocoder.head),
         arvc_params=arvc_params(arvc_np, dev, lm_dtype),
         device=dev,
     )

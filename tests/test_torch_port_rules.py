@@ -1,5 +1,5 @@
 """Rules of the PyTorch port that hold without a card: it imports nothing of
-JAX or the JAX package, its entry points refuse to guess a device, its
+JAX or the JAX package, its entry points refuse to guess a device, its four
 kernel wrappers never fall back for a tensor that is not on the CPU, and
 the ctypes signatures match the CUDA sources' C entry points."""
 
@@ -19,8 +19,10 @@ from streamvoiceanon_tpu_torch import config as C
 from streamvoiceanon_tpu_torch import params as P
 from streamvoiceanon_tpu_torch import resolve_device
 from streamvoiceanon_tpu_torch.ops import _build
+from streamvoiceanon_tpu_torch.ops import hifigan as headops
 from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
 from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
+from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
 from streamvoiceanon_tpu_torch.utils import randparams as rp
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -94,19 +96,39 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         fast_decode(p["fast_layers"], p["fast_norm"]["w"], p["fast_output"]["w"],
                     p["fast_embeddings"], p["codebook_embeddings"], x2[:1], None, nq=8,
                     n_head=2, head_dim=8, greedy=True)
+    tok = C.TokenizerConfig(transformer=C.WindowedTransformerConfig(
+        n_layer=1, n_head=2, dim=16, intermediate_size=32, head_dim=8, window_size=8))
+    wt = P.windowed_transformer_params(rp.tokenizer_params_np(tok)["pre_module"], "meta")
+    ring = torch.zeros((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        wt_stream_step(wt["layers"], x2[:1], ring, ring, 3, n_head=2, head_dim=8)
+    hcfg = C.HiFiGANConfig(num_mels=8, upsample_initial_channel=8, upsample_rates=(2,),
+                           upsample_kernel_sizes=(4,), pre_conv_kernel_size=3,
+                           post_conv_kernel_size=3, use_pallas_stream=True)
+    voc = C.VocoderConfig(head=hcfg)
+    head = P.hifigan_params(rp.vocoder_params_np(voc)["head"], "meta")
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        headops.head_stream_step(headops.packed_weights(head, hcfg),
+                                 headops.init_packed_state(hcfg, device="meta"),
+                                 torch.zeros((1, 4, 8), device="meta"), hcfg)
     assert slow_decode_step.launches == 0 and fast_decode.launches == 0
+    assert wt_stream_step.launches == 0 and headops.head_stream_step.launches == 0
 
 
 def test_unported_program_sets_are_refused():
-    """The two kernels of `tpu_optimized` that are not ported yet, and the
-    per-head cache layout, raise rather than run another program set."""
+    """`tpu_optimized` builds its stream states (flat ring, packed head);
+    the ConvNeXt encoder kernel's packed state and the per-head cache
+    layout, not ported yet, raise rather than run another program set."""
     from streamvoiceanon_tpu_torch.models import dual_ar, hifigan, tokenizer_stream
 
     cfg = C.tpu_optimized(C.PipelineConfig())
-    with pytest.raises(NotImplementedError, match="use_pallas_stream"):
-        tokenizer_stream.ring_init(cfg.tokenizer.transformer, device="cpu")
-    with pytest.raises(NotImplementedError, match="packed HiFiGAN head"):
-        hifigan.hifigan_init_stream({}, cfg.vocoder.head, device="cpu")
+    ring = tokenizer_stream.ring_init(cfg.tokenizer.transformer, device="meta")
+    assert ring.k_ring.shape == (8, 1, 512, 512)
+    head = hifigan.hifigan_init_stream({}, cfg.vocoder.head, device="meta")
+    assert isinstance(head, headops.PackedHeadState) and head.res[0].shape == (1, 400, 256)
+    enc = C.replace(cfg.tokenizer, use_pallas_encoder=True)
+    with pytest.raises(NotImplementedError, match="packed ConvNeXt encoder"):
+        tokenizer_stream.init_stream_state({}, enc, device="cpu")
     with pytest.raises(NotImplementedError, match="flat KV-cache"):
         dual_ar.init_state(C.PipelineConfig().arvc.decoder, device="cpu")
     dual_ar.init_state(C.replace(C.DualARConfig(), max_seq_len=8,

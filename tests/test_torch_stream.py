@@ -2,8 +2,11 @@
 on the CPU: the tokenizer stream, the vocoder stream, and the whole
 incremental StreamSession across prompt refills.
 
-JAX runs with use_pallas_slow_decode and use_pallas_fast_decode on (its
-Pallas kernels interpreted on the CPU); the port runs its plain paths.
+Each test runs under two program sets: `fast_slow` (use_pallas_slow_decode
+and use_pallas_fast_decode on) and `tpu_optimized` (also the windowed-
+transformer ring kernel with its flat ring, and the fused HiFiGAN head with
+its packed state).  JAX interprets its Pallas kernels on the CPU; the port
+runs its kernels' plain versions.
 Tokens and codes must be exact.  Waveforms agree to atol = rtol = 1e-4
 (XLA on the CPU and ATen sum in different orders) and, because the tiny
 random vocoder's output is small, also to 1e-4 of the largest sample.
@@ -17,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from streamvoiceanon_tpu.config import SamplingConfig, StreamConfig
+from streamvoiceanon_tpu.config import SamplingConfig, StreamConfig, tpu_optimized
 from streamvoiceanon_tpu.models import tokenizer_stream as jts
 from streamvoiceanon_tpu.models import vocoder as jvoc
 from streamvoiceanon_tpu.runtime.pipeline import VoiceConverter
@@ -27,6 +30,7 @@ from streamvoiceanon_tpu_torch import config as C
 from streamvoiceanon_tpu_torch import params as P
 from streamvoiceanon_tpu_torch.models import tokenizer_stream as tts
 from streamvoiceanon_tpu_torch.models import vocoder as tvoc
+from streamvoiceanon_tpu_torch.ops.hifigan import PackedHeadState
 from streamvoiceanon_tpu_torch.runtime.streaming import StreamSession
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -39,11 +43,20 @@ def _close_wave(got, ref):
 
 
 @pytest.fixture(scope="module")
-def pair():
-    """The JAX tiny converter with the two LM flags on, and the port's."""
-    cv = tiny_converter(seed=0)
-    cfg = drep(cv.cfg, arvc=drep(cv.cfg.arvc, decoder=drep(
-        cv.cfg.arvc.decoder, use_pallas_slow_decode=True, use_pallas_fast_decode=True)))
+def tiny():
+    return tiny_converter(seed=0)
+
+
+@pytest.fixture(scope="module", params=["fast_slow", "tpu_optimized"])
+def pair(request, tiny):
+    """The JAX tiny converter under one program set, and the port's."""
+    cv = tiny
+    if request.param == "tpu_optimized":
+        cfg = tpu_optimized(cv.cfg)
+    else:
+        cfg = drep(cv.cfg, arvc=drep(cv.cfg.arvc, decoder=drep(
+            cv.cfg.arvc.decoder, use_pallas_slow_decode=True,
+            use_pallas_fast_decode=True)))
     jcv = VoiceConverter(cfg=cfg, tokenizer_params=cv.tokenizer_params,
                          vocoder_params=cv.vocoder_params, arvc_params=cv.arvc_params)
     tonp = lambda t: jax.tree.map(np.asarray, t)
@@ -71,15 +84,18 @@ def test_encode_stream_tokens_exact(pair):
         ttok.append(b.numpy())
     np.testing.assert_array_equal(np.concatenate(ttok, 1), np.concatenate(jtok, 1))
     assert ts.ring.count == int(js.ring.count) == 6
+    assert ts.ring.k_ring.ndim == (4 if cfg.transformer.use_pallas_stream else 5)
     np.testing.assert_allclose(ts.ring.k_ring.numpy(), np.asarray(js.ring.k_ring), **TOL)
 
 
 def test_decode_stream_waveform_matches(pair):
     jcv, tcv = pair
     cfg = jcv.cfg.vocoder
+    assert ("head_packed" in tcv.vocoder_params) == cfg.head.use_pallas_stream
     codes = np.random.default_rng(2).integers(0, 1000, (1, 8, 5)).astype(np.int32)
     js = jvoc.init_stream_state(jcv.vocoder_params, cfg)
     ts = tvoc.init_stream_state(tcv.vocoder_params, tcv.cfg.vocoder)
+    assert isinstance(ts["head"], PackedHeadState) == cfg.head.use_pallas_stream
     step = jax.jit(jvoc.decode_stream, static_argnums=(1,))
     for i in range(5):
         js, a = step(jcv.vocoder_params, cfg, js, jnp.asarray(codes[:, :, i : i + 1]))
