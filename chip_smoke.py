@@ -5,7 +5,7 @@
 
 Phases, each reported on its own lines:
 
-1. the card's name and power limit (nvidia-smi), and the build of the four
+1. the card's name and power limit (nvidia-smi), and the build of the six
    CUDA kernels from csrc/ with nvcc, one process per source, all started
    together (seconds, ptxas register use);
 2. each kernel against its plain PyTorch version at the published width:
@@ -20,18 +20,30 @@ Phases, each reported on its own lines:
    - the fused HiFiGAN head over 8 consecutive chunks, each side carrying
      its own state, float32: max abs error <= 1e-3 over the waveform and
      every packed tail;
+   - the fused ConvNeXt front over 8 consecutive chunks, each side
+     carrying its own packed state, float32: max abs error <= 1e-3 over z
+     and every packed buffer;
+   - the per-head decode attention (12 heads x 64, 2 new rows, 2048 cache
+     rows) at pos 0, 1000 and 2046, float32: max abs error <= 1e-3 over
+     the output and both caches; bf16 is reported; cache rows >= pos + 2
+     poisoned with NaN must leave the output finite and unchanged;
    then kernel and plain times (CUDA events) beside the least time the
-   card could take for the same work;
-3. the main path, `tpu_optimized` (all four kernels): a full-width
+   card could take for the same work, and for the attention the time of
+   `F.scaled_dot_product_attention` over the valid rows;
+3. the main path, `tpu_optimized` (four kernels): a full-width
    StreamSession from seeded random weights (LM weights and KV cache in
    bf16, the tokenizer and vocoder in float32) streams 40 chunks through
-   two prompt refills; every output must be finite, 2048 samples, silent
+   prompt refills; every output must be finite, 2048 samples, silent
    only while the delay fills; the slow, fast and head launches must each
    equal the frames decoded and the ring-step launches the tokens encoded.
-   Reports p50/p90 chunk ms and a stage split.  Then a 12-chunk session
-   under `fast_slow_config` (the LM kernels only) keeps that path driven,
-   with its own launch check and stage split;
-4. a {"kernels": [...]} line, the card line, and as the last line
+   Reports p50/p90 chunk ms and a stage split.  Then, on the same weights,
+   three shorter sessions, each with its own launch check and stage
+   split: `fast_slow_config` (the LM kernels only, 12 chunks), `all_five`
+   (also the ConvNeXt front kernel, 16 chunks: front launches = tokens)
+   and `per_head_decode` (the per-head KV cache, 16 chunks: 12 attention
+   launches a frame, no slow step);
+4. a {"kernels": [...]} line (six kernels; each one's launches from the
+   session that runs it), the card line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is nonzero and no result line is
@@ -54,6 +66,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 RING_COUNTS = (0, 1, 511, 512, 1000, 3583, 3584)
+ATTN_POS = (0, 1000, 2046)
 SPF = 2048
 FRAME_MS = 1000.0 * SPF / 44100
 TOL = 1e-3
@@ -310,6 +323,195 @@ def head_params(hcfg, device, seed: int = 31):
     return p, packed_weights(p, hcfg)
 
 
+def front_tree_np(tcfg, seed: int = 41):
+    """Seeded tokenizer weights in the JAX package's numpy layout whose
+    ConvNeXt front has random biases, norm weights near 1 and LayerScales
+    of 0.1 to 0.5, so that every term of every block shows in the output."""
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+
+    rng = np.random.default_rng(seed)
+
+    def walk(x, key):
+        if isinstance(x, dict):
+            return {k: walk(v, k) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, key) for v in x]
+        if key == "gamma":
+            return rng.uniform(0.1, 0.5, x.shape).astype(np.float32)
+        if key == "b":
+            return (rng.standard_normal(x.shape) * 0.1).astype(np.float32)
+        if x.ndim == 1:  # a norm's weight
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+        fan_in = int(np.prod(x.shape[:-1]))
+        return (rng.standard_normal(x.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    tree = rp.tokenizer_params_np(tcfg, seed)
+    tree["backbone"] = walk(tree["backbone"], "")
+    tree["downsample"] = walk(tree["downsample"], "")
+    return tree
+
+
+def front_state(tcfg, device, g):
+    """A packed front state of random tails (padding rows included)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import PackedEncState, init_packed_state
+
+    z = init_packed_state(tcfg, 1, device=device)
+    r = lambda t: torch.randn(t.shape, generator=g, device=device)
+    return PackedEncState(r(z.stem), tuple(r(t) for t in z.stages), r(z.down))
+
+
+def front_leaves(state):
+    return [state.stem, *state.stages, state.down]
+
+
+def front_weights(tcfg, device):
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import packed_weights
+
+    return packed_weights(P.tokenizer_params(front_tree_np(tcfg), device), tcfg)
+
+
+def compare_front(tcfg, device, chunks: int, check: bool):
+    """The fused ConvNeXt front against its plain version over `chunks`
+    chunks of 4 mel frames, each side carrying its own packed state from
+    the same random tails.  Returns the max abs error over z and every
+    packed buffer."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import (
+        encoder_front_step, encoder_front_step_plain)
+
+    pw = front_weights(tcfg, device)
+    g = torch.Generator(device=device).manual_seed(23)
+    sk = sp = front_state(tcfg, device, g)
+    worst = 0.0
+    for c in range(chunks):
+        mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
+        sk, zk = encoder_front_step(pw, sk, mel, tcfg)
+        sp, zp = encoder_front_step_plain(pw, sp, mel, tcfg)
+        if not (torch.isfinite(zk).all() and zk.shape == (1, 1, tcfg.quantizer.input_dim)):
+            raise AssertionError(f"front chunk {c}: shape {tuple(zk.shape)} or not finite")
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            [zk, *front_leaves(sk)], [zp, *front_leaves(sp)]))
+        worst = max(worst, err)
+        if check and not err <= TOL:
+            raise AssertionError(f"front disagrees at chunk {c}: err {err:.3e}")
+    return worst
+
+
+def attn_inputs(H: int, T: int, D: int, S: int, device, dtype, g):
+    import torch
+
+    r = lambda *s: torch.randn(s, generator=g, device=device).to(dtype)
+    return r(H, T, D), r(H, T, D), r(H, T, D), r(H, S, D), r(H, S, D)
+
+
+def compare_attention(H: int, T: int, D: int, S: int, device, dtype, positions,
+                      check: bool):
+    """The decode attention against its plain version at each position:
+    max abs error over the output and both whole caches.  Rows >= pos + T
+    poisoned with NaN must leave the kernel's output finite and unchanged
+    (checked at every type)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.attention import (
+        decode_attention, decode_attention_plain)
+
+    g = torch.Generator(device=device).manual_seed(29)
+    worst = 0.0
+    for pos in positions:
+        q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, dtype, g)
+        ko = decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos)
+        po = decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ko, po))
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, pos + T :], vp[:, pos + T :] = float("nan"), float("nan")
+        poisoned = decode_attention(q, kn, vn, kp, vp, pos)[0]
+        if not (torch.isfinite(poisoned).all() and torch.equal(poisoned, ko[0])):
+            raise AssertionError(f"decode attention at pos {pos} read a stale row")
+        worst = max(worst, err)
+        if check and not err <= TOL:
+            raise AssertionError(f"decode attention disagrees at pos {pos}: err {err:.3e}")
+    return worst
+
+
+def front_flops(tcfg, T0: int) -> int:
+    """Multiply-adds x 2 of one front step on T0 mel frames."""
+    bb, q = tcfg.backbone, tcfg.quantizer
+    k = bb.kernel_size
+    blk = lambda T, c: T * (k * c + 8 * c * c)
+    f = T0 * k * bb.input_channels * bb.dims[0]
+    f += sum(T0 * a * b for a, b in zip(bb.dims, bb.dims[1:]))
+    f += sum(d * blk(T0, c) for d, c in zip(bb.depths, bb.dims))
+    T, c = T0, bb.dims[-1]
+    for fac in q.downsample_factor:
+        T //= fac
+        f += T * fac * c * q.input_dim + blk(T, q.input_dim)
+        c = q.input_dim
+    return 2 * f
+
+
+def time_front_attention(tcfg, dcfg, device, pos: int):
+    """Kernel, plain and bound times of the front (float32, T0 = 4, as on
+    the main path) and of the decode attention (bf16 cache at pos, the
+    dual-AR's heads and cache rows), and for the attention the time of
+    `F.scaled_dot_product_attention` over the valid rows after the two
+    row copies."""
+    import torch
+    import torch.nn.functional as F
+
+    from streamvoiceanon_tpu_torch.ops.attention import (
+        decode_attention, decode_attention_plain)
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import (
+        encoder_front_step, encoder_front_step_plain)
+
+    pw = front_weights(tcfg, device)
+    g = torch.Generator(device=device).manual_seed(31)
+    st = front_state(tcfg, device, g)
+    mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
+    H, D, S, T = dcfg.n_head, dcfg.head_dim, dcfg.max_seq_len, 2
+    q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, torch.bfloat16, g)
+    P_ = pos + T
+    mask = (torch.arange(P_, device=device)[None, :]
+            <= (pos + torch.arange(T, device=device))[:, None])
+
+    def library():
+        kc[:, pos:P_] = kn
+        vc[:, pos:P_] = vn
+        return F.scaled_dot_product_attention(q, kc[:, :P_], vc[:, :P_], attn_mask=mask)
+
+    out = {}
+    for name, kern, plain in (
+            ("enc", lambda: encoder_front_step(pw, st, mel, tcfg),
+             lambda: encoder_front_step_plain(pw, st, mel, tcfg)),
+            ("attn", lambda: decode_attention(q, kn, vn, kc, vc, pos),
+             lambda: decode_attention_plain(q, kn, vn, kc, vc, pos))):
+        p1 = cuda_ms(plain, 5)
+        k1 = cuda_ms(kern, 30)
+        k2 = cuda_ms(kern, 30)
+        p2 = cuda_ms(plain, 5)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ms_runs": [k1, k2],
+                     "plain_runs": [p1, p2]}
+    out["attn"]["library_ms"] = min(cuda_ms(library, 30), cuda_ms(library, 30))
+    # front: every packed weight once, the state in and out, mel and z
+    w = [t for k_, t in pw.items() if torch.is_tensor(t)]
+    for grp in (pw["stages"], pw["mids"], pw["downs"]):
+        for d in grp:
+            for v in d.values():
+                w += list(v.values()) if isinstance(v, dict) else [v]
+    front_bytes = (nbytes(*w) + 2 * nbytes(*front_leaves(st)) + nbytes(mel)
+                   + tcfg.quantizer.input_dim * 4)
+    out["enc"].update(bound(front_bytes, front_flops(tcfg, 4), FP32_FLOPS))
+    # attention: q and the new rows read and the output written, the old
+    # rows < pos of both caches read, the new rows written; float32 math
+    es = 2
+    attn_bytes = 4 * H * T * D * es + 2 * H * pos * D * es + 2 * H * T * D * es
+    out["attn"].update(bound(attn_bytes, 2 * 2 * H * T * P_ * D, FP32_FLOPS))
+    return out
+
+
 def head_leaves(state):
     return [state.pre, *state.ups, *state.res, state.post]
 
@@ -479,6 +681,7 @@ def stage_split(sess, rng, n_chunks: int):
 
     from streamvoiceanon_tpu_torch.models import arvc, tokenizer_stream, vocoder
 
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
     acc = {"encode": [], "lm_decode": [], "vocode": [], "refill_history": []}
     originals = []
 
@@ -486,10 +689,10 @@ def stage_split(sess, rng, n_chunks: int):
         fn = getattr(mod, name)
 
         def wrapper(*a, **kw):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             r = fn(*a, **kw)
-            torch.cuda.synchronize()
+            sync()
             acc[key].append(1e3 * (time.perf_counter() - t0))
             return r
 
@@ -506,6 +709,36 @@ def stage_split(sess, rng, n_chunks: int):
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     return {k: (float(np.median(v)), len(v)) for k, v in acc.items() if v}
+
+
+def counts_of(slow=0, fast=0, ring=0, head=0, enc=0, attn=0):
+    return {"slow": slow, "fast": fast, "ring": ring, "head": head, "enc": enc,
+            "attn": attn}
+
+
+def drive(name, sess, rng, n_chunks: int, expect, wrappers):
+    """Warm up, zero every wrapper's count, stream n_chunks, check the
+    counts against expect(frames, tokens), report, and split the stages.
+    Returns (counts, refills)."""
+    stream(sess, rng, 4)  # warm-up: delay fill, delay prefill, first decodes
+    for w in wrappers.values():
+        w.launches = 0
+    f0, k0, r0 = sess.frames_decoded, sess.tokens_seen, sess.refill_count
+    times = stream(sess, rng, n_chunks)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    frames, tokens = sess.frames_decoded - f0, sess.tokens_seen - k0
+    want = expect(frames, tokens)
+    if counts != want or frames != n_chunks:
+        raise AssertionError(f"{name}: launch counts {counts}, expected {want} "
+                             f"({frames} frames decoded of {n_chunks} chunks)")
+    p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
+    log(f"[3] {name}: {n_chunks} chunks, {frames} frames, {tokens} tokens, "
+        f"{sess.refill_count - r0} refills, {sess.truncation_count} sampler "
+        f"truncations; launches {counts}; chunk ms p50 {p50:.3f} p90 {p90:.3f} "
+        f"max {max(times):.3f}; p50 / {FRAME_MS:.2f} ms = {p50 / FRAME_MS:.4f}")
+    split = stage_split(sess, rng, 10)
+    log(f"[3] {name} stage medians over 10 chunks (synchronized): " + fmt_split(split))
+    return counts, sess.refill_count - r0
 
 
 def fmt_split(split) -> str:
@@ -526,6 +759,8 @@ def main() -> int:
         from streamvoiceanon_tpu_torch import config as C
         from streamvoiceanon_tpu_torch import resolve_device
         from streamvoiceanon_tpu_torch.ops import _build
+        from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+        from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
         from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
         from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
         from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
@@ -553,6 +788,7 @@ def main() -> int:
     d = cfg.arvc.decoder
     wcfg = cfg.tokenizer.transformer
     hcfg = cfg.vocoder.head
+    tcfg = C.all_five(C.PipelineConfig()).tokenizer
 
     # ---- phase 2
     t0 = time.time()
@@ -573,65 +809,56 @@ def main() -> int:
     st32["head"] = {"err": compare_head(hcfg, device, 8, True)}
     log(f"[2] head over 8 chunks, state carried: f32 max abs err "
         f"{st32['head']['err']:.3e} (bound {TOL})")
+    st32["enc"] = {"err": compare_front(tcfg, device, 8, True)}
+    log(f"[2] ConvNeXt front over 8 chunks, state carried: f32 max abs err "
+        f"{st32['enc']['err']:.3e} (bound {TOL})")
+    ageo = (d.n_head, 2, d.head_dim, d.max_seq_len)
+    st32["attn"] = {"err": compare_attention(*ageo, device, torch.float32, ATTN_POS, True)}
+    attn16 = compare_attention(*ageo, device, torch.bfloat16, ATTN_POS, False)
+    log(f"[2] decode attention at pos {list(ATTN_POS)}: f32 max abs err "
+        f"{st32['attn']['err']:.3e} (bound {TOL}); bf16 max abs err {attn16:.3e} (reported); "
+        f"NaN rows >= pos + 2 never read")
     tk = time_kernels(d, device, 1000)
     tk.update(time_ring_head(wcfg, hcfg, device, 1000))
+    tk.update(time_front_attention(tcfg, d, device, 1000))
     for name, what in (("slow", "bf16 pos 1000"), ("fast", "bf16"),
-                       ("ring", "f32 count 1000"), ("head", "f32 T0 4")):
+                       ("ring", "f32 count 1000"), ("head", "f32 T0 4"),
+                       ("enc", "f32 T0 4"), ("attn", "bf16 pos 1000")):
         t = tk[name]
         peak = f", peak {t['peak'] / 1e12:.0f} TFLOP/s" if "peak" in t else ""
+        lib = f", library {t['library_ms']:.4f} ms" if "library_ms" in t else ""
         log(f"[2] {name} {what}: kernel {t['ms']:.4f} ms (runs "
-            f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), plain {t['plain_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, "
+            f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), plain {t['plain_ms']:.4f} ms"
+            f"{lib}, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, "
             f"{t['flops']} flop{peak})")
     log(f"[2] done in {time.time() - t0:.1f} s")
 
-    # ---- phase 3: tpu_optimized, then a short fast+slow session
+    # ---- phase 3: tpu_optimized, then three shorter sessions on its weights
     wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
-                "head": head_stream_step}
+                "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
     scfg = C.StreamConfig(max_prompt_frames=32, max_seq_frames=64, buffer_frames=8,
                           delay=2)
     sess, rng, t_par, t_pre, cv = build_session(cfg, device, scfg, C.SamplingConfig(),
                                                 torch.bfloat16, torch.bfloat16)
     log(f"[3] params {t_par:.1f} s, session set-up (prompt prefill) {t_pre:.2f} s")
-    stream(sess, rng, 4)  # warm-up: delay fill, delay prefill, first decodes
-    for w in wrappers.values():
-        w.launches = 0
-    frames0, refills0, tokens0 = sess.frames_decoded, sess.refill_count, sess.tokens_seen
-    n_chunks = 40
-    times = stream(sess, rng, n_chunks)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    frames = sess.frames_decoded - frames0
-    tokens = sess.tokens_seen - tokens0
-    refills = sess.refill_count - refills0
-    if (any(launches[k] != frames for k in ("slow", "fast", "head"))
-            or launches["ring"] != tokens or frames != n_chunks):
-        raise AssertionError(f"launch counts {launches} vs {frames} frames decoded and "
-                             f"{tokens} tokens encoded")
-    if refills < 2:
-        raise AssertionError(f"only {refills} prompt refills in {n_chunks} chunks")
-    p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
-    log(f"[3] tpu_optimized: {n_chunks} chunks, {frames} frames, {tokens} tokens, "
-        f"{refills} refills; launches {launches}; chunk ms p50 {p50:.3f} p90 {p90:.3f} "
-        f"max {max(times):.3f}; p50 / {FRAME_MS:.2f} ms = {p50 / FRAME_MS:.4f}")
-    split = stage_split(sess, rng, 10)
-    log("[3] tpu_optimized stage medians over 10 chunks (synchronized): " + fmt_split(split))
 
-    fs_cfg = C.fast_slow_config(C.PipelineConfig())
-    fsess, frng, _, _, _ = build_session(fs_cfg, device, scfg, C.SamplingConfig(),
-                                         torch.bfloat16, torch.bfloat16, converter=cv)
-    stream(fsess, frng, 4)
-    for w in wrappers.values():
-        w.launches = 0
-    f0 = fsess.frames_decoded
-    ftimes = stream(fsess, frng, 12)
-    flaunch = {k: w.launches for k, w in wrappers.items()}
-    fframes = fsess.frames_decoded - f0
-    if flaunch != {"slow": fframes, "fast": fframes, "ring": 0, "head": 0}:
-        raise AssertionError(f"fast+slow launch counts {flaunch} vs {fframes} frames")
-    fsplit = stage_split(fsess, frng, 10)
-    log(f"[3] fast_slow: 12 chunks, {fframes} frames; launches {flaunch}; chunk ms p50 "
-        f"{np.percentile(ftimes, 50):.3f}; stage medians over 10 chunks (synchronized): "
-        + fmt_split(fsplit))
+    launches, refills = drive("tpu_optimized", sess, rng, 40, lambda f, t: counts_of(
+        slow=f, fast=f, ring=t, head=f), wrappers)
+    if refills < 2:
+        raise AssertionError(f"only {refills} prompt refills in 40 chunks")
+    for name, pcfg, n, expect in (
+            ("fast_slow", C.fast_slow_config(C.PipelineConfig()), 12,
+             lambda f, t: counts_of(slow=f, fast=f)),
+            ("all_five", C.all_five(C.PipelineConfig()), 16,
+             lambda f, t: counts_of(slow=f, fast=f, ring=t, head=f, enc=t)),
+            ("per_head", C.per_head_decode(C.PipelineConfig()), 16,
+             lambda f, t: counts_of(fast=f, ring=t, head=f, attn=d.n_layer * f))):
+        psess, prng, _, _, _ = build_session(pcfg, device, scfg, C.SamplingConfig(),
+                                             torch.bfloat16, torch.bfloat16, converter=cv)
+        counts, _ = drive(name, psess, prng, n, expect, wrappers)
+        own = {"all_five": "enc", "per_head": "attn"}.get(name)
+        if own:  # the kernel this session adds: its launches are this run's
+            launches[own] = counts[own]
 
     # ---- phase 4
     kernels = []
@@ -639,7 +866,9 @@ def main() -> int:
             ("slow", "slow_decode_step", "slow_decode.cu", "pallas_slow_decode.py:248"),
             ("fast", "fast_decode", "fast_decode.cu", "pallas_fast_decode.py:260"),
             ("ring", "wt_stream_step", "wt_stream.cu", "pallas_wt_stream.py:218"),
-            ("head", "head_stream_step", "hifigan_head.cu", "pallas_hifigan.py:353")):
+            ("head", "head_stream_step", "hifigan_head.cu", "pallas_hifigan.py:353"),
+            ("enc", "encoder_front_step", "convnext_enc.cu", "pallas_convnext_enc.py:353"),
+            ("attn", "decode_attention", "decode_attention.cu", "pallas_attention.py:78")):
         t = tk[key]
         kernels.append({
             "name": name, "route": "cuda",
@@ -647,7 +876,7 @@ def main() -> int:
             "replaces": f"streamvoiceanon_tpu/ops/{rep}",
             "launches": launches[key], "max_abs_err": st32[key]["err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
     log(f"[4] total {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

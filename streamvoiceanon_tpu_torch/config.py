@@ -6,7 +6,9 @@ defaults, which reproduce the published model family
 `config_firefly_arvcasr_8192_delay0_8`.  The flag names are kept, so one
 configuration describes both packages.  `tpu_optimized` is the program
 set of the main path; `fast_slow_config` keeps the tokenizer ring and the
-HiFiGAN head on their plain paths.
+HiFiGAN head on their plain paths; `all_five` adds the ConvNeXt encoder
+kernel and `per_head_decode` swaps the slow-step kernel for the per-head
+decode-attention kernel.
 """
 
 from __future__ import annotations
@@ -130,8 +132,10 @@ class DualARConfig:
     cond_input_dim: int = 768
     style_input_dim: int = 192
 
-    # Per-head fused update+attend decode kernel with a 128-lane padded
-    # cache layout (JAX package only; not ported yet).
+    # The frame decode's attention on the per-head update+attend kernel
+    # (ops/attention.py), with a per-head (L, B, H, S, head_dim) KV cache
+    # (the JAX package pads its head dim to 128 lanes; the port does not),
+    # then the output head and the windowed sampler.  Batch-1 MHA decode.
     use_pallas_decode: bool = False
 
     # Run the 8-step fast codebook loop (4 fast layers, exact full-vocab
@@ -277,9 +281,9 @@ class TokenizerConfig:
     transformer: WindowedTransformerConfig = field(
         default_factory=WindowedTransformerConfig
     )
-    # The ConvNeXt front end on the JAX package's fused encoder kernel, with
-    # a packed state.  Not ported yet: the port's tokenizer stream refuses
-    # it.
+    # The ConvNeXt front (stem, blocks, transitions, downsamples) on its
+    # kernel (ops/convnext_enc.py), with a packed tail state.  Batch 1;
+    # batch > 1 runs the dict path on the unpacked state.
     use_pallas_encoder: bool = False
 
     # training-only distillation head predicting w2v-BERT features
@@ -440,7 +444,8 @@ def tpu_optimized(cfg: PipelineConfig) -> PipelineConfig:
     (flat circular ring) and the fused HiFiGAN head (packed state), all
     four on hand-written kernels.  The ConvNeXt encoder kernel
     (`use_pallas_encoder`) and the per-head decode cache
-    (`use_pallas_decode`) stay off, as in the JAX package."""
+    (`use_pallas_decode`) stay off, as in the JAX package; `all_five` and
+    `per_head_decode` turn them on."""
     return replace(
         cfg,
         arvc=replace(cfg.arvc, decoder=replace(
@@ -452,3 +457,19 @@ def tpu_optimized(cfg: PipelineConfig) -> PipelineConfig:
         vocoder=replace(cfg.vocoder, head=replace(
             cfg.vocoder.head, use_pallas_stream=True)),
     )
+
+
+def all_five(cfg: PipelineConfig) -> PipelineConfig:
+    """`tpu_optimized` plus the ConvNeXt encoder kernel with its packed
+    state (`use_pallas_encoder`): the JAX package's "all five" set."""
+    t = tpu_optimized(cfg)
+    return replace(t, tokenizer=replace(t.tokenizer, use_pallas_encoder=True))
+
+
+def per_head_decode(cfg: PipelineConfig) -> PipelineConfig:
+    """`tpu_optimized` with the per-head KV cache: the frame decode's layer
+    loop on the decode-attention kernel (`use_pallas_decode`) in place of
+    the slow-step kernel, then the windowed sampler and the fast loop."""
+    t = tpu_optimized(cfg)
+    return replace(t, arvc=replace(t.arvc, decoder=replace(
+        t.arvc.decoder, use_pallas_slow_decode=False, use_pallas_decode=True)))

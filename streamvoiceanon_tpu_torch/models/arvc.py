@@ -8,6 +8,8 @@ The interleaved stream layout:
 
 where the first d audio slots are learned wait4start embeddings and d is
 the delay in frames.  LM activations stay in the LM parameters' dtype.
+The KV cache takes the layout the decoder's flags choose (flat rows or per
+head, `dual_ar.init_state`); every program here runs on either.
 """
 
 from __future__ import annotations

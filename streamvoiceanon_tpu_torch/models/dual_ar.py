@@ -1,14 +1,25 @@
-"""Dual-autoregressive token LM: flat-cache prefill and the frame decode step.
+"""Dual-autoregressive token LM: prefill and the frame decode step, on
+either KV-cache layout.
 
-As `streamvoiceanon_tpu.models.dual_ar` with `use_pallas_slow_decode` and
-`use_pallas_fast_decode` on: the KV cache is stored as flat
-(L, B, S, n_local_heads * head_dim) rows, prefill writes those rows with
-plain PyTorch, and `decode_frame` runs the two-token slow step and the
-8-step fast codebook loop on their kernels (ops/slow_decode.py,
-ops/fast_decode.py).  A slow transformer (12 x 768) consumes the
-interleaved stream [speaker prefix (33) | (content_t, audio_{t-delay})
-pairs] and a fast transformer (4 x 768) autoregresses over the 8 codec
-codebooks of each frame.
+As `streamvoiceanon_tpu.models.dual_ar`.  A slow transformer (12 x 768)
+consumes the interleaved stream [speaker prefix (33) | (content_t,
+audio_{t-delay}) pairs] and a fast transformer (4 x 768) autoregresses over
+the 8 codec codebooks of each frame.  The cache layout follows the flags:
+
+* `use_pallas_slow_decode`: flat (L, B, S, n_local_heads * head_dim) rows;
+  `decode_frame` runs the two-token slow step, the output head and the
+  exact full-vocabulary sampler on one kernel (ops/slow_decode.py);
+* otherwise per head, (L, B, n_local_heads, S, head_dim); with
+  `use_pallas_decode` `decode_frame` runs the layer loop here, each layer's
+  attention on the per-head decode kernel (ops/attention.py), then the
+  output head and the windowed sampler (ops/sampling.py), whose nucleus
+  truncations it counts in `DecodeState.trunc`.  The JAX package pads this
+  cache's head dim to 128 lanes for its TPU kernel; the port keeps it
+  unpadded.
+
+Either way the 8-step fast codebook loop runs on its kernel
+(ops/fast_decode.py), and prefill writes the cache with plain PyTorch.
+`convert_cache_layout` moves a live cache between the two layouts.
 
 The cache position is a host integer: the position trajectory of a
 stream is known in advance, so no device value is read back to schedule.
@@ -19,17 +30,19 @@ donated buffers.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from streamvoiceanon_tpu_torch.config import DualARConfig, SamplingConfig
+from streamvoiceanon_tpu_torch.ops.attention import decode_attention
 from streamvoiceanon_tpu_torch.ops.decode_common import freqs_table
 from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
 from streamvoiceanon_tpu_torch.ops.norm import rms_norm
 from streamvoiceanon_tpu_torch.ops.rope import apply_rope
+from streamvoiceanon_tpu_torch.ops.sampling import sample_token
 from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
 
 
@@ -41,27 +54,51 @@ def embed_codes(params: Dict, cfg: DualARConfig, codes: torch.Tensor) -> torch.T
 
 
 class DecodeState(NamedTuple):
-    k_cache: torch.Tensor  # (L, B, S, n_local_heads * head_dim) flat rows
+    k_cache: torch.Tensor  # (L, B, S, nl * hd) flat rows, or (L, B, nl, S, hd) per head
     v_cache: torch.Tensor
     pos: int  # next cache slot to write
+    # nucleus-truncation events of the windowed sampler so far (a device
+    # int32 scalar once counted; the kernels' exact filters never truncate)
+    trunc: Union[int, torch.Tensor] = 0
 
 
 def init_state(cfg: DualARConfig, batch: int = 1, cache_dtype=torch.float32,
                device=None) -> DecodeState:
-    if not cfg.use_pallas_slow_decode:
-        raise NotImplementedError(
-            "only the flat KV-cache layout (use_pallas_slow_decode) is ported")
-    shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_local_heads * cfg.head_dim)
+    if cfg.use_pallas_slow_decode:
+        shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_local_heads * cfg.head_dim)
+    else:
+        shape = (cfg.n_layer, batch, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
     return DecodeState(torch.zeros(shape, dtype=cache_dtype, device=device),
-                       torch.zeros(shape, dtype=cache_dtype, device=device), 0)
+                       torch.zeros(shape, dtype=cache_dtype, device=device), 0,
+                       torch.zeros((), dtype=torch.int32, device=device))
+
+
+def convert_cache_layout(state: DecodeState, cfg: DualARConfig) -> DecodeState:
+    """Re-lay the caches out to match cfg.use_pallas_slow_decode: per-head
+    (L, B, H, S, D) <-> flat (L, B, S, H*D) rows."""
+    kc = state.k_cache
+    want_flat = cfg.use_pallas_slow_decode
+    if want_flat and kc.ndim == 5:
+        L, B, H, S, D = kc.shape
+        to_flat = lambda c: c.transpose(2, 3).reshape(L, B, S, H * D)
+        return state._replace(k_cache=to_flat(kc), v_cache=to_flat(state.v_cache))
+    if not want_flat and kc.ndim == 4:
+        L, B, S, _ = kc.shape
+        H, D = cfg.n_local_heads, cfg.head_dim
+        to_headed = lambda c: c.reshape(L, B, S, H, D).transpose(2, 3).contiguous()
+        return state._replace(k_cache=to_headed(kc), v_cache=to_headed(state.v_cache))
+    return state
 
 
 def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
-                cfg: DualARConfig) -> torch.Tensor:
+                cfg: DualARConfig, kernel: bool = False) -> torch.Tensor:
     """Layer l of the slow stack on x (B, T, dim) at positions pos..pos+T-1:
-    writes the T roped K/V rows into the flat caches (B, S, HD) in place and
-    attends causally over rows < pos + T."""
+    writes the T roped K/V rows into the layer's caches in place, flat (B,
+    S, nl*hd) or per head (B, nl, S, hd), and attends causally over rows
+    < pos + T.  `kernel` (per-head cache, batch 1, MHA) runs the attention
+    on the decode-attention kernel with the JAX package's `use_pallas`
+    rounding: q, k, v in the cache dtype, the output rounded to it."""
     B, T, dim = x.shape
     H, nl, hd = cfg.n_head, cfg.n_local_heads, cfg.head_dim
     h = rms_norm(x, lp["attention_norm"]["w"][l], cfg.norm_eps)
@@ -69,19 +106,31 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
     q, k, v = torch.split(qkv, [H * hd, nl * hd, nl * hd], dim=-1)
     q = apply_rope(q.reshape(B, T, H, hd), freqs)
     k = apply_rope(k.reshape(B, T, nl, hd), freqs)
-    k_cache[:, pos : pos + T] = k.reshape(B, T, nl * hd).to(k_cache.dtype)
-    v_cache[:, pos : pos + T] = v.to(v_cache.dtype)
+    v = v.reshape(B, T, nl, hd)
     P = pos + T
-    k_all = k_cache[:, :P].reshape(B, P, nl, hd).transpose(1, 2).to(x.dtype)
-    v_all = v_cache[:, :P].reshape(B, P, nl, hd).transpose(1, 2).to(x.dtype)
-    if nl != H:
-        k_all = torch.repeat_interleave(k_all, H // nl, dim=1)
-        v_all = torch.repeat_interleave(v_all, H // nl, dim=1)
-    scores = (q.transpose(1, 2).float() @ k_all.float().transpose(-1, -2)) / np.sqrt(hd)
-    col = torch.arange(P, device=x.device)
-    mask = col[None, :] <= (pos + torch.arange(T, device=x.device))[:, None]
-    w = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1).to(x.dtype)
-    out = (w @ v_all).transpose(1, 2).reshape(B, T, H * hd)
+    cd = k_cache.dtype
+    if kernel:
+        heads = lambda t: t[0].transpose(0, 1).to(cd)  # (H, T, hd)
+        out, _, _ = decode_attention(heads(q), heads(k), heads(v), k_cache[0], v_cache[0], pos)
+        out = out.transpose(0, 1).reshape(1, T, H * hd).to(x.dtype)
+    else:
+        if k_cache.ndim == 3:  # flat rows
+            k_cache[:, pos:P] = k.reshape(B, T, nl * hd).to(cd)
+            v_cache[:, pos:P] = v.reshape(B, T, nl * hd).to(cd)
+            k_all = k_cache[:, :P].reshape(B, P, nl, hd).transpose(1, 2).to(x.dtype)
+            v_all = v_cache[:, :P].reshape(B, P, nl, hd).transpose(1, 2).to(x.dtype)
+        else:
+            k_cache[:, :, pos:P] = k.transpose(1, 2).to(cd)
+            v_cache[:, :, pos:P] = v.transpose(1, 2).to(cd)
+            k_all, v_all = k_cache[:, :, :P].to(x.dtype), v_cache[:, :, :P].to(x.dtype)
+        if nl != H:
+            k_all = torch.repeat_interleave(k_all, H // nl, dim=1)
+            v_all = torch.repeat_interleave(v_all, H // nl, dim=1)
+        scores = (q.transpose(1, 2).float() @ k_all.float().transpose(-1, -2)) / np.sqrt(hd)
+        col = torch.arange(P, device=x.device)
+        mask = col[None, :] <= (pos + torch.arange(T, device=x.device))[:, None]
+        w = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1).to(x.dtype)
+        out = (w @ v_all).transpose(1, 2).reshape(B, T, H * hd)
     x = x + out @ lp["wo"]["w"][l]
     f = rms_norm(x, lp["ffn_norm"]["w"][l], cfg.norm_eps)
     f = (F.silu(f @ lp["w1"]["w"][l]) * (f @ lp["w3"]["w"][l])) @ lp["w2"]["w"][l]
@@ -104,7 +153,7 @@ def prefill(params: Dict, cfg: DualARConfig, state: DecodeState,
     x = emb_seq
     for l in range(cfg.n_layer):
         x = _attn_block(params["layers"], l, x, freqs, kc[l], vc[l], start, cfg)
-    return DecodeState(kc, vc, start + T), x[:, -1:]
+    return DecodeState(kc, vc, start + T, state.trunc), x[:, -1:]
 
 
 def _project_fast(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -112,6 +161,14 @@ def _project_fast(params: Dict, hidden: torch.Tensor) -> torch.Tensor:
         p = params["fast_project_in"]
         return hidden @ p["w"] + (p["b"] if "b" in p else 0.0)
     return hidden
+
+
+def _token_logits(params: Dict, cfg: DualARConfig, hidden: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(hidden, params["norm"]["w"], cfg.norm_eps)
+    if cfg.tie_word_embeddings:
+        return h @ params["embeddings"].T
+    out = h @ params["output"]["w"]
+    return out + params["output"]["b"] if "b" in params["output"] else out
 
 
 def decode_frame(
@@ -122,34 +179,55 @@ def decode_frame(
     """One two-token slow step + the fast codebook loop, batch 1.
 
     emb2 (1, 2, dim) = [audio_emb, cond_emb].  Gumbel noise for the
-    semantic token (1, vocab) and for the codebooks (1, nq, codebook_size)
-    is an input, unused when sampling is greedy.  Returns (state',
-    semantic (1,), codes (1, nq), audio_emb (1, 1, dim)), audio_emb being
-    the next frame's summed codebook embedding.  Writes the two fresh cache
-    rows into state's caches in place."""
-    if not (cfg.use_pallas_slow_decode and cfg.use_pallas_fast_decode):
-        raise NotImplementedError("decode_frame needs use_pallas_slow_decode and "
-                                  "use_pallas_fast_decode (the ported path)")
+    semantic token and for the codebooks (1, nq, codebook_size) is an input,
+    unused when sampling is greedy: the semantic noise is (1, vocab) for the
+    slow kernel's exact filter, and on the per-head path (1,
+    top_k_window) with a sampling window, (1, vocab) without.  Returns
+    (state', semantic (1,), codes (1, nq), audio_emb (1, 1, dim)),
+    audio_emb being the next frame's summed codebook embedding.  Writes the
+    two fresh cache rows into state's caches in place."""
+    if not (cfg.use_pallas_fast_decode
+            and (cfg.use_pallas_slow_decode or cfg.use_pallas_decode)):
+        raise NotImplementedError("decode_frame needs use_pallas_fast_decode and one of "
+                                  "use_pallas_slow_decode, use_pallas_decode")
     if (emb2.shape[0] != 1 or cfg.n_local_heads != cfg.n_head
-            or cfg.fast_n_local_heads != cfg.fast_n_head or cfg.tie_word_embeddings
-            or "b" in params.get("output", {})):
-        raise NotImplementedError("decode_frame supports batch 1, MHA, an untied "
-                                  "output head without bias")
+            or cfg.fast_n_local_heads != cfg.fast_n_head):
+        raise NotImplementedError("decode_frame supports batch 1 and MHA")
     samp = dict(temperature=sampling.temperature, top_p=sampling.top_p,
-                greedy=sampling.greedy, norm_eps=cfg.norm_eps, rope_base=cfg.rope_base)
+                greedy=sampling.greedy)
     pos = state.pos
-    x2, k_rows, v_rows, semantic = slow_decode_step(
-        params["layers"], emb2[0], state.k_cache[:, 0], state.v_cache[:, 0], pos,
-        params["norm"]["w"], params["output"]["w"], gumbel_sem,
-        n_head=cfg.n_head, head_dim=cfg.head_dim, **samp)
-    state.k_cache[:, 0, pos : pos + 2] = k_rows
-    state.v_cache[:, 0, pos : pos + 2] = v_rows
-    hidden = _project_fast(params, x2[None, -1:])
+    trunc = state.trunc
+    if cfg.use_pallas_slow_decode:
+        if cfg.tie_word_embeddings or "b" in params.get("output", {}):
+            raise NotImplementedError("the slow-step kernel takes an untied output "
+                                      "head without bias")
+        x2, k_rows, v_rows, semantic = slow_decode_step(
+            params["layers"], emb2[0], state.k_cache[:, 0], state.v_cache[:, 0], pos,
+            params["norm"]["w"], params["output"]["w"], gumbel_sem,
+            n_head=cfg.n_head, head_dim=cfg.head_dim, norm_eps=cfg.norm_eps,
+            rope_base=cfg.rope_base, **samp)
+        state.k_cache[:, 0, pos : pos + 2] = k_rows
+        state.v_cache[:, 0, pos : pos + 2] = v_rows
+        last = x2[None, -1:]
+    else:
+        freqs = freqs_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base,
+                            emb2.device)[pos : pos + 2]
+        x = emb2
+        for l in range(cfg.n_layer):
+            x = _attn_block(params["layers"], l, x, freqs, state.k_cache[l],
+                            state.v_cache[l], pos, cfg, kernel=True)
+        last = x[:, -1:]
+        logits = _token_logits(params, cfg, last)[:, -1]
+        semantic, flag = sample_token(logits, gumbel_sem, top_k_window=sampling.top_k_window,
+                                      with_flag=True, **samp)
+        trunc = trunc + flag.sum(dtype=torch.int32)
+    hidden = _project_fast(params, last)
     codes, aemb = fast_decode(
         params["fast_layers"], params["fast_norm"]["w"], params["fast_output"]["w"],
         params["fast_embeddings"], params["codebook_embeddings"], hidden[:, 0],
         gumbel_fast, nq=cfg.num_codebooks, n_head=cfg.fast_n_head,
-        head_dim=cfg.fast_head_dim, **samp)
+        head_dim=cfg.fast_head_dim, norm_eps=cfg.norm_eps, rope_base=cfg.rope_base,
+        **samp)
     audio_emb = aemb[:, None].to(params["codebook_embeddings"].dtype)
-    return (DecodeState(state.k_cache, state.v_cache, pos + 2), semantic, codes,
+    return (DecodeState(state.k_cache, state.v_cache, pos + 2, trunc), semantic, codes,
             audio_emb)

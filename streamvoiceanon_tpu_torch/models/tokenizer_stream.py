@@ -3,7 +3,11 @@
 
 Carries an STFT sample tail, conv input tails for the ConvNeXt backbone and
 the two stride-2 downsampling convs, and a KV ring for the window-limited
-transformer in one of two layouts:
+transformer.  With `TokenizerConfig.use_pallas_encoder` the conv tails are
+one `PackedEncState` (ops/convnext_enc.py) and the whole ConvNeXt front runs
+as one kernel call at batch 1; a packed state at batch > 1 is unpacked, run
+on the dict path and repacked.  `convert_enc_layout` moves a live state
+between the two layouts.  The ring has one of two layouts:
 
 * rotated-frame (L, B, H, W, D): RoPE scores depend only on the query-key
   distance, so cached keys are kept rotated to a fixed query frame and
@@ -22,7 +26,7 @@ Chunk unit: one 2048-sample frame -> 4 mel hops -> 1 content token.
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from streamvoiceanon_tpu_torch.config import TokenizerConfig, WindowedTransformerConfig
 from streamvoiceanon_tpu_torch.models import convnext
 from streamvoiceanon_tpu_torch.ops import conv as convops
+from streamvoiceanon_tpu_torch.ops import convnext_enc as encops
 from streamvoiceanon_tpu_torch.ops import quantizers, stft
 from streamvoiceanon_tpu_torch.ops import wt_stream as wts
 from streamvoiceanon_tpu_torch.ops.norm import layer_norm, rms_norm
@@ -253,15 +258,24 @@ def transformer_stream_step(params: Dict, cfg: WindowedTransformerConfig,
 
 class TokenizerStreamState(NamedTuple):
     mel: MelState
-    backbone: Dict
-    down: Tuple
+    backbone: Union[Dict, encops.PackedEncState]
+    down: Tuple  # () with a packed backbone
     ring: RingState
+
+
+def _packed_eligible(cfg: TokenizerConfig, batch: int) -> bool:
+    return cfg.use_pallas_encoder and cfg.backbone.gin_channels == 0 and batch == 1
 
 
 def init_stream_state(params: Dict, cfg: TokenizerConfig, batch: int = 1,
                       dtype=torch.float32, device=None) -> TokenizerStreamState:
-    if cfg.use_pallas_encoder:
-        raise NotImplementedError("the packed ConvNeXt encoder state is not ported yet")
+    if _packed_eligible(cfg, batch):
+        return TokenizerStreamState(
+            mel=mel_init_state(cfg.mel, batch, device),
+            backbone=encops.init_packed_state(cfg, batch, dtype, device),
+            down=(),
+            ring=ring_init(cfg.transformer, batch, dtype, device),
+        )
     dims = cfg.quantizer.input_dim
     down = tuple(
         {
@@ -282,6 +296,25 @@ def init_stream_state(params: Dict, cfg: TokenizerConfig, batch: int = 1,
     )
 
 
+def convert_enc_layout(state: TokenizerStreamState, params: Dict, cfg: TokenizerConfig,
+                       target_batch: int = 0) -> TokenizerStreamState:
+    """Re-lay the ConvNeXt front's state out to match cfg.use_pallas_encoder:
+    dict layout <-> `PackedEncState`.  `target_batch` overrides the state's
+    own batch in the packed-eligibility check (a packed batch-1 state that
+    is about to be tiled to a larger batch is unpacked first)."""
+    is_packed = isinstance(state.backbone, encops.PackedEncState)
+    batch = target_batch or (state.backbone.stem.shape[0] if is_packed
+                             else state.backbone["stem"].tail.shape[0])
+    want_packed = _packed_eligible(cfg, batch)
+    if want_packed and not is_packed:
+        return state._replace(backbone=encops.pack_enc_state(state.backbone, state.down, cfg),
+                              down=())
+    if is_packed and not want_packed:
+        bb, dn = encops.unpack_enc_state(state.backbone, cfg)
+        return state._replace(backbone=bb, down=dn)
+    return state
+
+
 def _encode_front_dict(params, cfg, state, mel):
     """mel -> pre-transformer features (ConvNeXt backbone + downsampling)."""
     bb_state, z = convnext_encoder_apply_stream(
@@ -299,9 +332,23 @@ def _encode_front_dict(params, cfg, state, mel):
 def encode_stream(params: Dict, cfg: TokenizerConfig, state: TokenizerStreamState,
                   wav_chunk: torch.Tensor,
                   consts: dict) -> Tuple[TokenizerStreamState, torch.Tensor]:
-    """(state, (B, k*2048) samples) -> (state', (B, k) int32 content tokens)."""
+    """(state, (B, k*2048) samples) -> (state', (B, k) int32 content tokens).
+
+    A packed front state needs the packed weights, `params["enc_packed"]`
+    (`params.Converter` packs them once)."""
     mel_state, mel = mel_stream(state.mel, wav_chunk, cfg.mel, consts)
-    bb_state, z, new_down = _encode_front_dict(params, cfg, state, mel)
+    if not isinstance(state.backbone, encops.PackedEncState):
+        bb_state, z, new_down = _encode_front_dict(params, cfg, state, mel)
+    elif mel.shape[0] == 1:
+        if "enc_packed" not in params:
+            raise ValueError("encode_stream: a packed front state needs params['enc_packed'] "
+                             "(ops/convnext_enc.packed_weights)")
+        bb_state, z = encops.encoder_front_step(params["enc_packed"], state.backbone, mel, cfg)
+        new_down = ()
+    else:  # batched: unpack -> dict path -> repack
+        bb, dn = encops.unpack_enc_state(state.backbone, cfg)
+        bb2, z, nd = _encode_front_dict(params, cfg, state._replace(backbone=bb, down=dn), mel)
+        bb_state, new_down = encops.pack_enc_state(bb2, nd, cfg), ()
     ring = state.ring
     outs = []
     for t in range(z.shape[1]):

@@ -6,7 +6,7 @@ stages (transposed conv + ConvNeXt block) -> HiFiGAN head -> 2048 samples
 per frame.  Every conv carries its input tail, so the stream equals the
 offline decode.  With `HiFiGANConfig.use_pallas_stream` the head runs the
 fused head kernel on its packed state, with the weights packed once into
-`params["head_packed"]` (params.converter_from_numpy).
+`params["head_packed"]` by `params.Converter`.
 """
 
 from __future__ import annotations

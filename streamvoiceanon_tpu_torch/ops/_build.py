@@ -38,6 +38,8 @@ SIGNATURES = {
     "wt_stream": ("svd_wt_stream_step",
                   [_I, _I] + [_P] * 14 + [_I, _I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
     "hifigan_head": ("svd_hifigan_head_step", [_P] * 6 + [_I] + [_P] * 2),
+    "convnext_enc": ("svd_convnext_enc_step", [_P] * 6 + [_I] + [_P] * 4),
+    "decode_attention": ("svd_decode_attention", [_I] + [_P] * 6 + [_I] * 5 + [_F, _P]),
 }
 
 _lock = threading.Lock()

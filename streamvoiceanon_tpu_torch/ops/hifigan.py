@@ -171,7 +171,7 @@ def unpack_head_state(packed: PackedHeadState, cfg: HiFiGANConfig) -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# Weight packing (once per parameter tree: params.converter_from_numpy)
+# Weight packing (once per parameter tree: params.Converter)
 # ---------------------------------------------------------------------------
 
 

@@ -15,9 +15,11 @@ Only the parts of the tokenizer and vocoder trees the streaming path uses
 are carried (the pre-quantization transformer, not the post one; the
 decode side of the codec, not its encoder).  Layer lists are stacked once
 here into one tree of (L, ...) arrays (the dual-AR layers and the windowed
-transformer's), and with `HiFiGANConfig.use_pallas_stream` the head's
-weights are packed once into `vocoder_params["head_packed"]` for the fused
-head kernel.
+transformer's).  A `Converter` packs, once, the weights of the fused
+kernels its program set runs: with `HiFiGANConfig.use_pallas_stream` the
+head's (`vocoder_params["head_packed"]`), with
+`TokenizerConfig.use_pallas_encoder` the ConvNeXt front's
+(`tokenizer_params["enc_packed"]`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from streamvoiceanon_tpu_torch import resolve_device
 from streamvoiceanon_tpu_torch.config import PipelineConfig
+from streamvoiceanon_tpu_torch.ops import convnext_enc as encops
 from streamvoiceanon_tpu_torch.ops import hifigan as headops
 
 
@@ -140,19 +143,15 @@ def hifigan_params(h: Dict, device, dtype=torch.float32) -> Dict:
     }
 
 
-def vocoder_params(p: Dict, device, dtype=torch.float32, head_cfg=None) -> Dict:
-    """The decode side of the codec; with `head_cfg.use_pallas_stream` also
-    the head's weights packed for the fused head kernel (`head_packed`)."""
-    out = {
+def vocoder_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The decode side of the codec."""
+    return {
         "upsample": [{"conv": _tconv(s["conv"], device, dtype),
                       "block": _block(s["block"], device, dtype)}
                      for s in p["upsample"]],
         "fsq": tree(p["fsq"], device, dtype),
         "head": hifigan_params(p["head"], device, dtype),
     }
-    if head_cfg is not None and head_cfg.use_pallas_stream:
-        out["head_packed"] = headops.packed_weights(out["head"], head_cfg)
-    return out
 
 
 def dual_ar_params(p: Dict, device, dtype=torch.float32) -> Dict:
@@ -184,6 +183,20 @@ class Converter:
     arvc_params: Dict
     device: torch.device
 
+    def __post_init__(self):
+        """Pack the weights of the fused kernels `cfg` runs where the trees
+        lack them (also for a converter re-used under another program set
+        through `dataclasses.replace`)."""
+        tcfg, hcfg = self.cfg.tokenizer, self.cfg.vocoder.head
+        if tcfg.use_pallas_encoder and "enc_packed" not in self.tokenizer_params:
+            self.tokenizer_params = {**self.tokenizer_params,
+                                     "enc_packed": encops.packed_weights(self.tokenizer_params,
+                                                                         tcfg)}
+        if hcfg.use_pallas_stream and "head_packed" not in self.vocoder_params:
+            self.vocoder_params = {**self.vocoder_params,
+                                   "head_packed": headops.packed_weights(
+                                       self.vocoder_params["head"], hcfg)}
+
 
 def converter_from_numpy(cfg: PipelineConfig, tokenizer_np: Dict, vocoder_np: Dict,
                          arvc_np: Dict, *, device: Optional[str] = None,
@@ -195,7 +208,7 @@ def converter_from_numpy(cfg: PipelineConfig, tokenizer_np: Dict, vocoder_np: Di
     return Converter(
         cfg=cfg,
         tokenizer_params=tokenizer_params(tokenizer_np, dev),
-        vocoder_params=vocoder_params(vocoder_np, dev, head_cfg=cfg.vocoder.head),
+        vocoder_params=vocoder_params(vocoder_np, dev),
         arvc_params=arvc_params(arvc_np, dev, lm_dtype),
         device=dev,
     )

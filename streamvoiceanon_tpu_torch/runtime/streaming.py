@@ -5,8 +5,10 @@ of 2048 samples (one frame) runs three stages:
 
 1. incremental content encode (`tokenizer_stream.encode_stream`): one
    content token;
-2. the LM frame decode (`arvc.decode_one` -> `dual_ar.decode_frame`, the
-   slow-step and fast-loop kernels), then the incremental vocoder
+2. the LM frame decode (`arvc.decode_one` -> `dual_ar.decode_frame`: the
+   slow-step kernel, or the layer loop on the per-head decode-attention
+   kernel and the windowed sampler; then the fast-loop kernel), then the
+   incremental vocoder
    (`vocoder.decode_stream`): 2048 output samples;
 3. host logic: silence while the first `delay` tokens accumulate, a
    one-time delay prefill, and the periodic prompt refill when the LM
@@ -43,8 +45,8 @@ class FusedState(NamedTuple):
 def _own_caches(st: arvc.ARVCState) -> arvc.ARVCState:
     """A copy of `st` whose KV caches the frame decode may update in place."""
     d = st.decode
-    return st._replace(decode=dual_ar.DecodeState(d.k_cache.clone(), d.v_cache.clone(),
-                                                  d.pos))
+    return st._replace(decode=d._replace(k_cache=d.k_cache.clone(),
+                                         v_cache=d.v_cache.clone()))
 
 
 class StreamSession:
@@ -141,16 +143,30 @@ class StreamSession:
                                     self.delay)
 
     def _noise(self):
-        """Gumbel rows for one frame, -log(-log(U)) drawn on the device."""
+        """Gumbel rows for one frame, -log(-log(U)) drawn on the device: the
+        semantic row spans the sampling window on the per-head path (its
+        windowed sampler), the vocabulary on the slow kernel's exact one."""
         if self.sampling.greedy:
             return None, None
         d = self.cfg.arvc.decoder
+        sem = d.vocab_size
+        if not d.use_pallas_slow_decode and 0 < self.sampling.top_k_window < sem:
+            sem = self.sampling.top_k_window
 
         def gumbel(*shape):
             u = torch.rand(shape, generator=self.generator, device=self.device)
             return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
 
-        return gumbel(1, d.vocab_size), gumbel(1, d.num_codebooks, d.codebook_size)
+        return gumbel(1, sem), gumbel(1, d.num_codebooks, d.codebook_size)
+
+    @property
+    def truncation_count(self) -> int:
+        """Nucleus-truncation events of the windowed semantic sampler (its
+        top-k window held less than top_p of the probability) carried by the
+        live LM state; as in the JAX package, a prompt refill swaps in a
+        state that carries the count of the post-prompt state.  Reading it
+        waits for the device."""
+        return int(self.fstate.lm.decode.trunc)
 
     # ------------------------------------------------------------------
     # the chunk step

@@ -6,11 +6,11 @@ installed; `tests/conftest.py` imports JAX, so there run it without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Float32: tokens and codes equal, float outputs (rings and packed tails
-included) within 1e-3 (the kernels sum in another order than cuBLAS and
-ATen).  Each new kernel is held at the published width and at tiny
-geometries; the tiny converter's head narrows to one channel, which the
-head kernel takes.
+Float32: tokens and codes equal, float outputs (rings, caches and packed
+tails included) within 1e-3 (the kernels sum in another order than cuBLAS
+and ATen).  Each kernel after the first two is held at the published width
+and at tiny geometries; the tiny converter's head narrows to one channel,
+which the head kernel takes.
 """
 
 import numpy as np
@@ -71,26 +71,70 @@ def test_head_kernel_matches_plain(size):
     assert chip_smoke.compare_head(hcfg, "cuda", 6, True) <= chip_smoke.TOL
 
 
+TINY_FRONT = C.replace(C.TokenizerConfig(), quantizer=C.BSQConfig(input_dim=32),
+                       backbone=C.ConvNeXtConfig(depths=(2, 1, 3, 1), dims=(16, 24, 28, 32)))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("program", ["fast_slow", "tpu_optimized"])
+@pytest.mark.parametrize("size", ["full", "tiny"])
+def test_front_kernel_matches_plain(size):
+    """Over 6 chunks, state carried: at the published width and at a tiny
+    front with several blocks per stage."""
+    _need_card()
+    tcfg = C.all_five(C.PipelineConfig()).tokenizer if size == "full" else TINY_FRONT
+    assert chip_smoke.compare_front(tcfg, "cuda", 6, True) <= chip_smoke.TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geo", ["full", "tiny", "tiny_one_row", "tiny_bf16"])
+def test_decode_attention_kernel_matches_plain(geo):
+    """(heads, new rows, head dim, cache rows) at the published dual-AR
+    width and tiny ones; bf16 within its rounding of the output.  NaN rows
+    beyond pos + T are never read (checked inside)."""
+    _need_card()
+    shape, dtype, pos, tol = {
+        "full": ((12, 2, 64, 2048), torch.float32, chip_smoke.ATTN_POS, chip_smoke.TOL),
+        "tiny": ((2, 2, 16, 64), torch.float32, (0, 5, 62), chip_smoke.TOL),
+        "tiny_one_row": ((3, 1, 32, 40), torch.float32, (0, 17, 39), chip_smoke.TOL),
+        "tiny_bf16": ((2, 2, 16, 64), torch.bfloat16, (0, 5, 62), 0.05),
+    }[geo]
+    assert chip_smoke.compare_attention(*shape, "cuda", dtype, pos, False) <= tol
+
+
+PROGRAMS = {
+    "fast_slow": (C.fast_slow_config,
+                  lambda f, t: chip_smoke.counts_of(slow=f, fast=f)),
+    "tpu_optimized": (C.tpu_optimized,
+                      lambda f, t: chip_smoke.counts_of(slow=f, fast=f, ring=t, head=f)),
+    "all_five": (C.all_five,
+                 lambda f, t: chip_smoke.counts_of(slow=f, fast=f, ring=t, head=f, enc=t)),
+    "per_head": (C.per_head_decode,
+                 lambda f, t: chip_smoke.counts_of(fast=f, ring=t, head=f, attn=12 * f)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("program", sorted(PROGRAMS))
 def test_main_path_launches_each_kernel_once_per_frame(program):
     _need_card()
+    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
     from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
     from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
     from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
     from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
 
-    cfg = (C.tpu_optimized if program == "tpu_optimized" else C.fast_slow_config)(
-        C.PipelineConfig())
+    make, expect = PROGRAMS[program]
     scfg = C.StreamConfig(max_prompt_frames=8, max_seq_frames=32, buffer_frames=2,
                           delay=2)
-    sess, rng, _, _, _ = chip_smoke.build_session(cfg, "cuda", scfg, C.SamplingConfig(),
-                                                  torch.bfloat16, torch.bfloat16)
-    for w in (slow_decode_step, fast_decode, wt_stream_step, head_stream_step):
+    sess, rng, _, _, _ = chip_smoke.build_session(make(C.PipelineConfig()), "cuda", scfg,
+                                                  C.SamplingConfig(), torch.bfloat16,
+                                                  torch.bfloat16)
+    wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
+                "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
+    for w in wrappers.values():
         w.launches = 0
     times = chip_smoke.stream(sess, rng, 8)
     assert len(times) == 8 and np.isfinite(times).all()
-    assert slow_decode_step.launches == fast_decode.launches == sess.frames_decoded == 6
-    on = program == "tpu_optimized"
-    assert wt_stream_step.launches == (sess.tokens_seen if on else 0) == (8 if on else 0)
-    assert head_stream_step.launches == (6 if on else 0)
+    assert sess.frames_decoded == 6 and sess.tokens_seen == 8
+    assert {k: w.launches for k, w in wrappers.items()} == expect(6, 8)

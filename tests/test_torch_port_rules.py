@@ -1,5 +1,5 @@
 """Rules of the PyTorch port that hold without a card: it imports nothing of
-JAX or the JAX package, its entry points refuse to guess a device, its four
+JAX or the JAX package, its entry points refuse to guess a device, its six
 kernel wrappers never fall back for a tensor that is not on the CPU, and
 the ctypes signatures match the CUDA sources' C entry points."""
 
@@ -19,7 +19,9 @@ from streamvoiceanon_tpu_torch import config as C
 from streamvoiceanon_tpu_torch import params as P
 from streamvoiceanon_tpu_torch import resolve_device
 from streamvoiceanon_tpu_torch.ops import _build
+from streamvoiceanon_tpu_torch.ops import convnext_enc as encops
 from streamvoiceanon_tpu_torch.ops import hifigan as headops
+from streamvoiceanon_tpu_torch.ops.attention import decode_attention
 from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
 from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
 from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
@@ -111,14 +113,28 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         headops.head_stream_step(headops.packed_weights(head, hcfg),
                                  headops.init_packed_state(hcfg, device="meta"),
                                  torch.zeros((1, 4, 8), device="meta"), hcfg)
+    front = C.replace(tok, backbone=C.ConvNeXtConfig(input_channels=8, depths=(1, 1),
+                                                     dims=(8, 16)),
+                      quantizer=C.BSQConfig(input_dim=16), use_pallas_encoder=True)
+    tp = P.tokenizer_params(rp.tokenizer_params_np(front), "meta")
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        encops.encoder_front_step(encops.packed_weights(tp, front),
+                                  encops.init_packed_state(front, device="meta"),
+                                  torch.zeros((1, 4, 8), device="meta"), front)
+    kc = torch.zeros((1, 16, 8), device="meta")
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        decode_attention(x2[None, :, :8], x2[None, :, :8], x2[None, :, :8], kc, kc, 3)
     assert slow_decode_step.launches == 0 and fast_decode.launches == 0
     assert wt_stream_step.launches == 0 and headops.head_stream_step.launches == 0
+    assert encops.encoder_front_step.launches == 0 and decode_attention.launches == 0
 
 
 def test_unported_program_sets_are_refused():
-    """`tpu_optimized` builds its stream states (flat ring, packed head);
-    the ConvNeXt encoder kernel's packed state and the per-head cache
-    layout, not ported yet, raise rather than run another program set."""
+    """Every program set of the JAX package's kernels builds its stream
+    states: `tpu_optimized` (flat ring, packed head), `all_five` (also the
+    packed encoder state) and `per_head_decode` (the unpadded per-head KV
+    cache).  The windowed transformer's LConv1d branch (`dw_conv`), not
+    ported yet, raises rather than run another program."""
     from streamvoiceanon_tpu_torch.models import dual_ar, hifigan, tokenizer_stream
 
     cfg = C.tpu_optimized(C.PipelineConfig())
@@ -126,13 +142,18 @@ def test_unported_program_sets_are_refused():
     assert ring.k_ring.shape == (8, 1, 512, 512)
     head = hifigan.hifigan_init_stream({}, cfg.vocoder.head, device="meta")
     assert isinstance(head, headops.PackedHeadState) and head.res[0].shape == (1, 400, 256)
-    enc = C.replace(cfg.tokenizer, use_pallas_encoder=True)
-    with pytest.raises(NotImplementedError, match="packed ConvNeXt encoder"):
-        tokenizer_stream.init_stream_state({}, enc, device="cpu")
-    with pytest.raises(NotImplementedError, match="flat KV-cache"):
-        dual_ar.init_state(C.PipelineConfig().arvc.decoder, device="cpu")
-    dual_ar.init_state(C.replace(C.DualARConfig(), max_seq_len=8,
-                                 use_pallas_slow_decode=True), device="cpu")
+    enc = C.all_five(C.PipelineConfig()).tokenizer
+    st = tokenizer_stream.init_stream_state({}, enc, device="meta")
+    assert isinstance(st.backbone, encops.PackedEncState) and st.down == ()
+    assert [t.shape[1] for t in st.backbone.stages] == [24, 24, 72, 24]
+    assert st.backbone.stem.shape == (1, 8, 160) and st.backbone.down.shape == (1, 16, 512)
+    ph = C.per_head_decode(C.PipelineConfig()).arvc.decoder
+    d = dual_ar.init_state(ph, device="meta")
+    assert d.k_cache.shape == (12, 1, 12, 2048, 64) and d.pos == 0
+    assert dual_ar.init_state(cfg.arvc.decoder, device="meta").k_cache.shape == (12, 1, 2048,
+                                                                                 768)
+    with pytest.raises(NotImplementedError, match="dw_conv"):
+        tokenizer_stream.ring_init(C.replace(cfg.tokenizer.transformer, dw_conv=True))
 
 
 _CTYPE = {"int": "c_int", "float": "c_float"}

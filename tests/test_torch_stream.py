@@ -2,11 +2,14 @@
 on the CPU: the tokenizer stream, the vocoder stream, and the whole
 incremental StreamSession across prompt refills.
 
-Each test runs under two program sets: `fast_slow` (use_pallas_slow_decode
-and use_pallas_fast_decode on) and `tpu_optimized` (also the windowed-
+Each test runs under four program sets: `fast_slow` (use_pallas_slow_decode
+and use_pallas_fast_decode on), `tpu_optimized` (also the windowed-
 transformer ring kernel with its flat ring, and the fused HiFiGAN head with
-its packed state).  JAX interprets its Pallas kernels on the CPU; the port
-runs its kernels' plain versions.
+its packed state), `all_five` (also the fused ConvNeXt front with its
+packed encoder state) and `per_head` (`tpu_optimized` with the per-head
+KV cache and the decode-attention kernel in place of the slow step).  JAX
+interprets its Pallas kernels on the CPU; the port runs its kernels' plain
+versions.
 Tokens and codes must be exact.  Waveforms agree to atol = rtol = 1e-4
 (XLA on the CPU and ATen sum in different orders) and, because the tiny
 random vocoder's output is small, also to 1e-4 of the largest sample.
@@ -30,6 +33,7 @@ from streamvoiceanon_tpu_torch import config as C
 from streamvoiceanon_tpu_torch import params as P
 from streamvoiceanon_tpu_torch.models import tokenizer_stream as tts
 from streamvoiceanon_tpu_torch.models import vocoder as tvoc
+from streamvoiceanon_tpu_torch.ops.convnext_enc import PackedEncState
 from streamvoiceanon_tpu_torch.ops.hifigan import PackedHeadState
 from streamvoiceanon_tpu_torch.runtime.streaming import StreamSession
 
@@ -47,12 +51,17 @@ def tiny():
     return tiny_converter(seed=0)
 
 
-@pytest.fixture(scope="module", params=["fast_slow", "tpu_optimized"])
+@pytest.fixture(scope="module", params=["fast_slow", "tpu_optimized", "all_five", "per_head"])
 def pair(request, tiny):
     """The JAX tiny converter under one program set, and the port's."""
     cv = tiny
-    if request.param == "tpu_optimized":
+    if request.param != "fast_slow":
         cfg = tpu_optimized(cv.cfg)
+        if request.param == "all_five":
+            cfg = drep(cfg, tokenizer=drep(cfg.tokenizer, use_pallas_encoder=True))
+        elif request.param == "per_head":
+            cfg = drep(cfg, arvc=drep(cfg.arvc, decoder=drep(
+                cfg.arvc.decoder, use_pallas_slow_decode=False, use_pallas_decode=True)))
     else:
         cfg = drep(cv.cfg, arvc=drep(cv.cfg.arvc, decoder=drep(
             cv.cfg.arvc.decoder, use_pallas_slow_decode=True,
@@ -72,6 +81,7 @@ def test_encode_stream_tokens_exact(pair):
     wav = (np.random.default_rng(1).standard_normal((1, 6 * SPF)) * 0.1).astype(np.float32)
     js = jts.init_stream_state(jcv.tokenizer_params, cfg)
     ts = tts.init_stream_state(tcv.tokenizer_params, tcv.cfg.tokenizer)
+    assert isinstance(ts.backbone, PackedEncState) == cfg.use_pallas_encoder
     jc, tc = jts.mel_consts(cfg.mel), tts.mel_consts(tcv.cfg.tokenizer.mel)
     step = jax.jit(jts.encode_stream, static_argnums=(1,))
     jtok, ttok = [], []
@@ -151,3 +161,6 @@ def test_session_matches_jax_across_refills(pair, delay):
                                       np.asarray(js.fstate.tok_ring))
     assert ts.refill_count >= 2 and swaps[0]
     assert ts.frames_decoded == js.frames_decoded
+    assert ts.fstate.lm.decode.k_cache.ndim == (4 if tcv.cfg.arvc.decoder.use_pallas_slow_decode
+                                                else 5)
+    assert ts.truncation_count == js.truncation_count == 0
