@@ -13,6 +13,11 @@ Phases, each reported on its own lines:
      greedy and sampled with shared Gumbel noise, 8 frames each: float32
      must agree in every token and code with max abs error <= 1e-3 on the
      float outputs; bf16 (weights and cache) is reported;
+   - the slow step at pos 0, 1, around its attention's split edges (runs
+     of 64 rows in float32, 128 in bf16) and 2046, and its attention alone
+     at every pos of 0 .. 259 and at 1000, 1023, 1024 and 2046, same
+     bounds; cache rows >= pos poisoned with NaN must leave the step's
+     outputs finite and unchanged;
    - the windowed-transformer ring step at counts 0, 1, 511, 512, 1000,
      3583 and 3584 (the last re-bases the ring first), float32: max abs
      error <= 1e-3 over the output row and both whole rings; bf16 is
@@ -27,9 +32,14 @@ Phases, each reported on its own lines:
      rows) at pos 0, 1000 and 2046, float32: max abs error <= 1e-3 over
      the output and both caches; bf16 is reported; cache rows >= pos + 2
      poisoned with NaN must leave the output finite and unchanged;
-   then kernel and plain times (CUDA events) beside the least time the
-   card could take for the same work, and for the attention the time of
-   `F.scaled_dot_product_attention` over the valid rows;
+   then, in a child process (`python3 chip_smoke.py --slow-breakdown`), for
+   the slow step (bf16, sampled) at pos 150, 1000 and 1600, its device
+   time a step by kernel family (torch.profiler), its CUDA-event
+   time, the host's time to enqueue it, its time replayed from a CUDA
+   graph, and one layer's attention alone; then kernel and plain times
+   (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
+   time the card could take for the same work, and for the attention the
+   time of `F.scaled_dot_product_attention` over the valid rows;
 3. the main path, `tpu_optimized` (four kernels): a full-width
    StreamSession from seeded random weights (LM weights and KV cache in
    bf16, the tokenizer and vocoder in float32) streams 40 chunks through
@@ -67,6 +77,10 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 RING_COUNTS = (0, 1, 511, 512, 1000, 3583, 3584)
 ATTN_POS = (0, 1000, 2046)
+# the slow step's attention takes its rows in runs of 64 (float32) or 128
+# (bf16) rows a block: positions at, around and between those edges
+SLOW_POS = (0, 1, 62, 63, 64, 65, 126, 127, 128, 129, 1000, 2046)
+SLOW_TIME_POS = (150, 1000, 1600)
 SPF = 2048
 FRAME_MS = 1000.0 * SPF / 44100
 TOL = 1e-3
@@ -168,6 +182,60 @@ def compare_kernels(cfg, device, dtype, cache_dtype, pos0: int, frames: int,
     return stats
 
 
+def compare_slow_positions(cfg, device, dtype, positions, check: bool):
+    """The slow step (sampled) against its plain version at each position,
+    and again with the cache rows >= pos poisoned with NaN, which must leave
+    the kernel's outputs finite and bitwise unchanged; then one layer's
+    attention alone against its plain version at every position of
+    0 .. 259 and at 1000, 1023, 1024 and S - 2.  Returns (tokens that agree,
+    steps, max abs err of the step's float outputs, max abs err of the
+    attention's outputs)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.slow_decode import (
+        slow_attention, slow_attention_plain, slow_decode_step, slow_decode_step_plain)
+
+    p = lm_params(cfg, device, dtype)
+    g = torch.Generator(device=device).manual_seed(19)
+    L, S, D = cfg.n_layer, cfg.max_seq_len, cfg.n_head * cfg.head_dim
+    kc = (torch.randn((L, S, D), generator=g, device=device) * 0.5).to(dtype)
+    vc = (torch.randn((L, S, D), generator=g, device=device) * 0.5).to(dtype)
+    skw = dict(n_head=cfg.n_head, head_dim=cfg.head_dim, rope_base=cfg.rope_base,
+               norm_eps=cfg.norm_eps, temperature=0.7, top_p=0.7, greedy=False)
+    agree, worst = 0, 0.0
+    for pos in positions:
+        x2 = torch.randn((2, D), generator=g, device=device).to(dtype)
+        gs = -torch.log(-torch.log(torch.rand((1, cfg.vocab_size), generator=g,
+                                              device=device)))
+        rest = (pos, p["norm"]["w"], p["output"]["w"], gs)
+        ko = slow_decode_step(p["layers"], x2, kc, vc, *rest, **skw)
+        po = slow_decode_step_plain(p["layers"], x2, kc, vc, *rest, **skw)
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, pos:], vp[:, pos:] = float("nan"), float("nan")
+        poisoned = slow_decode_step(p["layers"], x2, kp, vp, *rest, **skw)
+        del kp, vp
+        if not all(torch.isfinite(a.float()).all() and torch.equal(a, b)
+                   for a, b in zip(poisoned, ko)):
+            raise AssertionError(f"slow step at pos {pos} read a stale cache row")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ko[:3], po[:3]))
+        agree += int(torch.equal(ko[3], po[3]))
+        worst = max(worst, err)
+        if check and (not torch.equal(ko[3], po[3]) or err > TOL):
+            raise AssertionError(f"slow step disagrees at pos {pos}: tokens "
+                                 f"{ko[3].item()} vs {po[3].item()}, err {err:.3e}")
+    akw = dict(n_head=cfg.n_head, head_dim=cfg.head_dim, rope_base=cfg.rope_base)
+    attn_worst = 0.0
+    for pos in [*range(260), 1000, 1023, 1024, S - 2]:
+        qkv = torch.randn((2, 3 * D), generator=g, device=device).to(dtype)
+        ka = slow_attention(qkv, kc[0], vc[0], pos, **akw)
+        pa = slow_attention_plain(qkv, kc[0], vc[0], pos, **akw)
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ka, pa))
+        attn_worst = max(attn_worst, err)
+        if check and not err <= TOL:
+            raise AssertionError(f"slow attention disagrees at pos {pos}: err {err:.3e}")
+    return agree, len(positions), worst, attn_worst
+
+
 def slow_bound(cfg, p, pos, wsize, csize):
     lay = p["layers"]
     weights = nbytes(*(lay[k]["w"] for k in lay), p["norm"]["w"], p["output"]["w"])
@@ -190,7 +258,7 @@ def fast_bound(cfg, p, wsize):
     return weights + rows + io, flops
 
 
-def time_kernels(cfg, device, pos: int):
+def time_kernels(cfg, device, pos: int, names=("slow", "fast")):
     """bf16 weights and cache at pos: kernel and plain times, bounds."""
     import torch
 
@@ -221,6 +289,8 @@ def time_kernels(cfg, device, pos: int):
     for name, kern, plain, args, kw in (
             ("slow", slow_decode_step, slow_decode_step_plain, sargs, skw),
             ("fast", fast_decode, fast_decode_plain, fargs, fkw)):
+        if name not in names:
+            continue
         p1 = cuda_ms(lambda: plain(*args, **kw), 5)
         k1 = cuda_ms(lambda: kern(*args, **kw), 30)
         k2 = cuda_ms(lambda: kern(*args, **kw), 30)
@@ -230,10 +300,99 @@ def time_kernels(cfg, device, pos: int):
     bs, fs = slow_bound(cfg, p, pos, 2, 2)
     bf, ff = fast_bound(cfg, p, 2)
     for name, (b, fl) in (("slow", (bs, fs)), ("fast", (bf, ff))):
+        if name not in names:
+            continue
         t_bytes = 1e3 * b / HBM_BYTES_PER_S
         t_ops = 1e3 * fl / BF16_FLOPS
         out[name].update(bound_ms=max(t_bytes, t_ops), bytes=b, flops=fl,
                          bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+FAMILIES = ("matvec", "attention", "sample", "memset/copy", "other")
+
+
+def family(kernel: str) -> str:
+    if "matvec_kernel" in kernel:
+        return "matvec"
+    if "attn" in kernel:
+        return "attention"
+    if "sample_kernel" in kernel:
+        return "sample"
+    if any(w in kernel.lower() for w in ("memset", "memcpy", "copy", "fill")):
+        return "memset/copy"
+    return "other"
+
+
+def slow_breakdown(cfg, device, positions, n: int = 30):
+    """The slow step (bf16, sampled) at each position: device ms per step by
+    kernel family from torch.profiler over n steps, and launches per step;
+    the step's CUDA-event time, the host's time to enqueue one, and the
+    time of one step replayed from a CUDA graph (no host between launches);
+    one layer's attention alone (CUDA events over 30 back-to-back launches
+    of the step's attention launch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamvoiceanon_tpu_torch.ops.slow_decode import slow_attention, slow_decode_step
+
+    dt = torch.bfloat16
+    p = lm_params(cfg, device, dt)
+    g = torch.Generator(device=device).manual_seed(7)
+    L, S, D = cfg.n_layer, cfg.max_seq_len, cfg.n_head * cfg.head_dim
+    kc = (torch.randn((L, S, D), generator=g, device=device) * 0.5).to(dt)
+    vc = (torch.randn((L, S, D), generator=g, device=device) * 0.5).to(dt)
+    x2 = torch.randn((2, D), generator=g, device=device).to(dt)
+    qkv = torch.randn((2, 3 * D), generator=g, device=device).to(dt)
+    gs = -torch.log(-torch.log(torch.rand((1, cfg.vocab_size), generator=g, device=device)))
+    skw = dict(n_head=cfg.n_head, head_dim=cfg.head_dim, rope_base=cfg.rope_base,
+               norm_eps=cfg.norm_eps, temperature=0.7, top_p=0.7, greedy=False)
+    akw = dict(n_head=cfg.n_head, head_dim=cfg.head_dim, rope_base=cfg.rope_base)
+    out = {}
+    for pos in positions:
+        step = lambda: slow_decode_step(p["layers"], x2, kc, vc, pos, p["norm"]["w"],
+                                        p["output"]["w"], gs, **skw)
+        step_ms = cuda_ms(step, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        host_ms = 1e3 * (time.perf_counter() - t0) / 10
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph_ms = cuda_ms(graph.replay, n)
+        del graph
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        fam = dict.fromkeys(FAMILIES, 0.0)
+        launches = dict.fromkeys(FAMILIES, 0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            fam[family(e.key)] += us / 1e3 / n
+            launches[family(e.key)] += e.count / n
+        attn_ms = cuda_ms(lambda: slow_attention(qkv, kc[0], vc[0], pos, reps=30, **akw),
+                          3, warmup=1) / 30
+        out[pos] = {"step_ms": step_ms, "device_ms": sum(fam.values()), "family_ms": fam,
+                    "launches": launches, "attn_layer_ms": attn_ms, "host_ms": host_ms,
+                    "graph_ms": graph_ms}
+        log(f"[2] slow step bf16 pos {pos}: {step_ms:.4f} ms a step (CUDA events), "
+            f"{host_ms:.4f} ms to enqueue one (host clock, 10 steps), {graph_ms:.4f} ms a "
+            f"step replayed from a CUDA graph (CUDA events: the device alone); device "
+            f"time a step by family (torch.profiler over {n} steps): "
+            + ", ".join(f"{k} {v:.4f} ms ({launches[k]:g} launches)" for k, v in fam.items())
+            + f", all {sum(fam.values()):.4f} ms"
+            + ("" if sum(fam.values()) > 0 else " (the profiler saw no device time)")
+            + f"; one layer's attention alone {attn_ms:.4f} ms (CUDA events), "
+            f"x {L} layers {L * attn_ms:.4f} ms")
     return out
 
 
@@ -802,6 +961,16 @@ def main() -> int:
         f"max abs err {st16['slow']['err']:.3e}; fast loop codes "
         f"{st16['fast']['agree']}/{st16['fast']['n']}, max abs err "
         f"{st16['fast']['err']:.3e} (reported)")
+    agree, n, err, aerr = compare_slow_positions(d, device, torch.float32, SLOW_POS, True)
+    st32["slow"]["err"] = max(st32["slow"]["err"], err, aerr)
+    log(f"[2] f32 slow step at pos {list(SLOW_POS)}: tokens {agree}/{n}, max abs err "
+        f"{err:.3e}; its attention alone at pos 0..259, 1000, 1023, 1024, "
+        f"{d.max_seq_len - 2}: max abs err {aerr:.3e} (bound {TOL}); NaN cache rows "
+        f">= pos never read")
+    agree, n, err, aerr = compare_slow_positions(d, device, torch.bfloat16, SLOW_POS, False)
+    log(f"[2] bf16 slow step at the same positions: tokens {agree}/{n}, max abs err "
+        f"{err:.3e}; attention alone max abs err {aerr:.3e} (reported); NaN cache rows "
+        f">= pos never read")
     st32["ring"] = {"err": compare_ring(wcfg, device, torch.float32, RING_COUNTS, True)}
     ring16 = compare_ring(wcfg, device, torch.bfloat16, RING_COUNTS, False)
     log(f"[2] ring step at counts {list(RING_COUNTS)}: f32 max abs err "
@@ -818,7 +987,19 @@ def main() -> int:
     log(f"[2] decode attention at pos {list(ATTN_POS)}: f32 max abs err "
         f"{st32['attn']['err']:.3e} (bound {TOL}); bf16 max abs err {attn16:.3e} (reported); "
         f"NaN rows >= pos + 2 never read")
+    # torch.profiler and the CUDA-graph capture run in a child process, so
+    # that nothing they leave behind can touch phase 3's timing
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slow-breakdown"],
+                       capture_output=True, text=True, timeout=600)
+    sys.stdout.write(r.stdout)
+    if r.returncode != 0:
+        raise AssertionError(f"slow step breakdown failed:\n{r.stderr[-4000:]}")
     tk = time_kernels(d, device, 1000)
+    for pos in SLOW_TIME_POS:
+        t = tk["slow"] if pos == 1000 else time_kernels(d, device, pos, ("slow",))["slow"]
+        log(f"[2] slow bf16 pos {pos}: kernel {t['ms']:.4f} ms (runs "
+            f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B)")
     tk.update(time_ring_head(wcfg, hcfg, device, 1000))
     tk.update(time_front_attention(tcfg, d, device, 1000))
     for name, what in (("slow", "bf16 pos 1000"), ("fast", "bf16"),
@@ -886,5 +1067,21 @@ def main() -> int:
     return 0
 
 
+def breakdown_main() -> int:
+    """`python3 chip_smoke.py --slow-breakdown`: phase 2's slow-step
+    breakdown alone (main runs it in a child process)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from streamvoiceanon_tpu_torch import config as C
+
+    d = C.tpu_optimized(C.PipelineConfig()).arvc.decoder
+    slow_breakdown(d, "cuda", SLOW_TIME_POS)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(breakdown_main() if sys.argv[1:] == ["--slow-breakdown"] else main())

@@ -1,4 +1,5 @@
-// Device kernels shared by the dual-AR slow step (slow_decode.cu), the fast
+// Device kernels shared by the dual-AR slow step (slow_decode.cu, which uses
+// the matvec and the sampler with its own split-row attention), the fast
 // codebook loop (fast_decode.cu), the windowed-transformer ring step
 // (wt_stream.cu, which uses the matvec and its own ring attention) and the
 // ConvNeXt encoder front (convnext_enc.cu, which uses the matvec).
@@ -17,10 +18,10 @@
 //                   the K-chunks in a fixed order and applies the epilogue,
 //                   so every weight byte is read once per call, serves both
 //                   rows, and the result does not depend on block timing.
-//   attn_kernel     one block per head: RoPE of the fresh queries and keys,
-//                   scores against cache rows < pos plus the fresh rows
-//                   (j <= t) under one max and one denominator, then the
-//                   value mix.  Writes the fresh roped K and V rows.
+//   attn_kernel     the fast loop's attention, one block per head: RoPE of
+//                   the fresh query and key, scores against cache rows < pos
+//                   plus the fresh row under one max and one denominator,
+//                   then the value mix.  Writes the fresh roped K and V rows.
 //   sample_kernel   one block over the vocabulary: softmax, 40-step
 //                   bisection for the nucleus threshold, Gumbel race, argmax
 //                   with the lowest index on ties.  For the fast loop it also
@@ -30,8 +31,7 @@
 //
 // Rounding follows the TPU kernels (ops/pallas_slow_decode.py and
 // ops/pallas_fast_decode.py of the JAX package): activations are rounded
-// to the weight type W wherever those kernels cast to it, and the slow
-// step's score products are rounded to the cache type C.  `rnd<T>` is the
+// to the weight type W wherever those kernels cast to it.  `rnd<T>` is the
 // identity for float.
 #pragma once
 
@@ -61,6 +61,47 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 
 // elements per 16-byte load
 template <typename T> struct Vec { static constexpr int N = 16 / sizeof(T); };
+
+// 16 raw bytes as VEC floats
+template <typename T>
+__device__ __forceinline__ void unpack_vec(const uint4& raw, float* out) {
+  if constexpr (std::is_same<T, float>::value) {
+    out[0] = __uint_as_float(raw.x);
+    out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z);
+    out[3] = __uint_as_float(raw.w);
+  } else {
+    const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
+  }
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// launch_pdl may start while the previous launch on its stream finishes.
+// `pdl_launch_dependents` lets the next launch start; `pdl_wait` returns
+// once the previous launch has completed and its writes are visible.  Both
+// are no-ops in a kernel launched without the attribute.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
+                              cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
 
 template <typename T>
 __device__ __forceinline__ void load_vec(const T* p, float* out) {
@@ -115,7 +156,10 @@ enum Epilogue {
   EPI_BIAS = 5, EPI_BIAS_GELU = 6, EPI_BIAS_SCALED_RESID = 7
 };
 
-template <typename W, int R, int EPI>
+// PDL (the slow step only): the block loads its weights, lets the next
+// launch start, then waits for the previous launch before it reads x, so
+// the weight stream overlaps the previous launch's tail.
+template <typename W, int R, int EPI, bool PDL = false>
 __global__ void __launch_bounds__(MV_TX * MV_TY)
 matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
               const W* __restrict__ wa, const W* __restrict__ wb, int K, int N,
@@ -136,6 +180,20 @@ matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
   const int ksplit = gridDim.y;
   const int k0 = ky * MV_KC, k1 = min(K, k0 + MV_KC);
   const W* wm = z == 0 ? wa : wb;
+  const int col0 = tile * TCOLS + tx * VEC;
+  constexpr int KPT = MV_KC / MV_TY;  // K rows per thread
+  uint4 wraw[PDL ? KPT : 1];
+  if constexpr (PDL) {
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const int k = k0 + ty + i * MV_TY;
+      wraw[i] = col0 < N && k < k1
+                    ? __ldg(reinterpret_cast<const uint4*>(wm + (size_t)k * N + col0))
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+    pdl_launch_dependents();
+    pdl_wait();
+  }
 
   // 1. this block's K-chunk of the input rows, RMS-normalized if asked
   if (norm_w != nullptr) {
@@ -167,16 +225,31 @@ matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
-  const int col0 = tile * TCOLS + tx * VEC;
   if (col0 < N) {
-    for (int k = k0 + ty; k < k1; k += MV_TY) {
-      float wv[VEC];
-      load_vec<W>(wm + (size_t)k * N + col0, wv);
+    if constexpr (PDL) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float xv = xs[r][k - k0];
+      for (int i = 0; i < KPT; ++i) {
+        const int k = k0 + ty + i * MV_TY;
+        if (k >= k1) break;
+        float wv[VEC];
+        unpack_vec<W>(wraw[i], wv);
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, wv[v], acc[r][v]);
+        for (int r = 0; r < R; ++r) {
+          const float xv = xs[r][k - k0];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, wv[v], acc[r][v]);
+        }
+      }
+    } else {
+      for (int k = k0 + ty; k < k1; k += MV_TY) {
+        float wv[VEC];
+        load_vec<W>(wm + (size_t)k * N + col0, wv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float xv = xs[r][k - k0];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, wv[v], acc[r][v]);
+        }
       }
     }
   }
@@ -244,7 +317,7 @@ inline size_t matvec_tiles(int N) {
   return (size_t)((N + TCOLS - 1) / TCOLS);
 }
 
-template <typename W, int R, int EPI>
+template <typename W, int R, int EPI, bool PDL = false>
 inline cudaError_t launch_matvec(const W* x, const W* norm_w, float eps, const W* wa,
                                  const W* wb, int K, int N, float* partials,
                                  int* counters, void* out, cudaStream_t st,
@@ -252,8 +325,15 @@ inline cudaError_t launch_matvec(const W* x, const W* norm_w, float eps, const W
   dim3 grid((unsigned)matvec_tiles<W>(N), (unsigned)((K + MV_KC - 1) / MV_KC),
             EPI == EPI_SWIGLU ? 2 : 1);
   dim3 block(MV_TX, MV_TY);
-  matvec_kernel<W, R, EPI><<<grid, block, 0, st>>>(x, norm_w, eps, wa, wb, K, N,
-                                                   partials, counters, out, scale, bias);
+  if constexpr (PDL) {
+    const cudaError_t e = launch_pdl(matvec_kernel<W, R, EPI, true>, grid, block, st, x,
+                                     norm_w, eps, wa, wb, K, N, partials, counters, out,
+                                     scale, bias);
+    if (e != cudaSuccess) return e;
+  } else {
+    matvec_kernel<W, R, EPI><<<grid, block, 0, st>>>(x, norm_w, eps, wa, wb, K, N,
+                                                     partials, counters, out, scale, bias);
+  }
   return cudaGetLastError();
 }
 
@@ -265,17 +345,15 @@ constexpr int AT_THREADS = 256;
 constexpr int AT_WARPS = AT_THREADS / 32;
 constexpr int AT_MAXD = 4;  // head_dim <= 128
 
-// FAST selects the fast loop's arithmetic (ops/pallas_fast_decode.py): one
-// query, unrounded float32 query, float32 score products, weights
-// normalized before the value mix.  Otherwise the slow step's
-// (ops/pallas_slow_decode.py): two queries rounded to W then C, score
-// products rounded to C, the value mix divided by the denominator after.
-template <typename W, typename C, bool FAST>
+// The fast loop's arithmetic (ops/pallas_fast_decode.py): one query,
+// unrounded float32 query, float32 score products, weights normalized
+// before the value mix.
+template <typename W, typename C>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc,
             int pos, const float* __restrict__ freqs, C* k_new, C* v_new,
             W* __restrict__ out, float scale) {
-  constexpr int T = FAST ? 1 : 2;
+  constexpr int T = 1;
   extern __shared__ float sm[];
   __shared__ float red[32];
   __shared__ float denom[T];
@@ -299,7 +377,7 @@ attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc
     const float qr = (d & 1) ? q1 * c + q0 * s : q0 * c - q1 * s;
     const float kr = rnd<W>((d & 1) ? k1 * c + k0 * s : k0 * c - k1 * s);
     const float v = to_f<W>(row[2 * dim + h * hd + d]);
-    qs[i] = FAST ? qr : rnd<C>(rnd<W>(qr));
+    qs[i] = qr;
     kn[i] = rnd<C>(kr);
     vn[i] = v;
     k_new[(size_t)t * dim + h * hd + d] = from_f<C>(kr);
@@ -323,8 +401,7 @@ attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc
       for (int m = 0; m < AT_MAXD; ++m) {
         const int d = lane + 32 * m;
         if (d < hd) {
-          const float pr = qs[t * hd + d] * kv[m];
-          p += FAST ? pr : rnd<C>(pr);
+          p += qs[t * hd + d] * kv[m];
         }
       }
       p = warp_sum(p);
@@ -338,8 +415,7 @@ attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc
     for (int m = 0; m < AT_MAXD; ++m) {
       const int d = lane + 32 * m;
       if (d < hd) {
-        const float pr = qs[t * hd + d] * kn[jn * hd + d];
-        p += FAST ? pr : rnd<C>(pr);
+        p += qs[t * hd + d] * kn[jn * hd + d];
       }
     }
     p = warp_sum(p);
@@ -364,10 +440,8 @@ attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc
     if (tid == 0) denom[t] = s;
   }
   __syncthreads();
-  if (FAST) {
-    for (int j = tid; j < T * P; j += AT_THREADS) sc[j] = sc[j] / denom[j / P];
-    __syncthreads();
-  }
+  for (int j = tid; j < T * P; j += AT_THREADS) sc[j] = sc[j] / denom[j / P];
+  __syncthreads();
 
   // 4. value mix: warps over cache rows, lanes over dims
   float acc[T][AT_MAXD];
@@ -400,23 +474,22 @@ attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc
     float a = 0.f;
     for (int w = 0; w < AT_WARPS; ++w) a += wred[(w * T + t) * hd + d];
     for (int jn = 0; jn <= t; ++jn) a += sc[t * P + pos + jn] * vn[jn * hd + d];
-    if (!FAST) a = a / denom[t];
     out[(size_t)t * dim + h * hd + d] = from_f<W>(a);
   }
 }
 
-template <typename W, typename C, bool FAST>
+template <typename W, typename C>
 inline cudaError_t launch_attn(const W* qkv, int n_head, int hd, const C* kc,
                                const C* vc, int pos, const float* freqs, C* k_new,
                                C* v_new, W* out, cudaStream_t st) {
-  constexpr int T = FAST ? 1 : 2;
+  constexpr int T = 1;
   const size_t smem = sizeof(float) * ((size_t)(3 + AT_WARPS) * T * hd + (size_t)T * (pos + T));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<W, C, FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_kernel<W, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attn_kernel<W, C, FAST><<<n_head, AT_THREADS, smem, st>>>(
+  attn_kernel<W, C><<<n_head, AT_THREADS, smem, st>>>(
       qkv, n_head * hd, hd, kc, vc, pos, freqs, k_new, v_new, out,
       1.0f / sqrtf((float)hd));
   return cudaGetLastError();
@@ -429,7 +502,9 @@ inline cudaError_t launch_attn(const W* qkv, int n_head, int hd, const C* kc,
 constexpr int SM_THREADS = 1024;
 constexpr int SM_VPT = 16;  // vocab <= 16384
 
-template <typename W>
+// PDL: launched after the slow step's output-head matvec, it waits for it
+// before reading the logits.
+template <typename W, bool PDL = false>
 __global__ void __launch_bounds__(SM_THREADS)
 sample_kernel(const float* __restrict__ logits, int V, const float* __restrict__ gumbel,
               int greedy, float temperature, float top_p, int* __restrict__ token,
@@ -440,6 +515,7 @@ sample_kernel(const float* __restrict__ logits, int V, const float* __restrict__
   __shared__ int bi[32];
   __shared__ int tok_s;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  if constexpr (PDL) pdl_wait();
   float lg[SM_VPT], race[SM_VPT];
 #pragma unroll
   for (int i = 0; i < SM_VPT; ++i) {

@@ -37,9 +37,8 @@ cudaError_t fast_loop(W* h, const float* gumbel, const W* wqkv, const W* wo,
                                               nullptr, dim, 3 * dim, partials,
                                               counters, qkv, st)));
       // slots < s hold this frame's earlier steps; slot s is written here
-      SVD_TRY((launch_attn<W, W, true>(qkv, n_head, head_dim, kl, vl, s, freqs,
-                                       kl + (size_t)s * dim, vl + (size_t)s * dim,
-                                       attn, st)));
+      SVD_TRY((launch_attn<W, W>(qkv, n_head, head_dim, kl, vl, s, freqs,
+                                 kl + (size_t)s * dim, vl + (size_t)s * dim, attn, st)));
       SVD_TRY((launch_matvec<W, 1, EPI_RESID>(attn, nullptr, eps, wo + ld * dim,
                                               nullptr, dim, dim, partials, counters,
                                               h, st)));

@@ -31,7 +31,7 @@ _F = ctypes.c_float
 # C signatures of the entry points, by source
 SIGNATURES = {
     "slow_decode": ("svd_slow_decode_step",
-                    [_I, _I] + [_P] * 11 + [_I] + [_P] * 12 + [_I] * 7
+                    [_I, _I] + [_P] * 11 + [_I] + [_P] * 14 + [_I] * 7
                     + [_F, _F, _F, _I, _P]),
     "fast_decode": ("svd_fast_decode",
                     [_I] + [_P] * 24 + [_I] * 8 + [_F, _F, _F, _I, _P]),
@@ -40,6 +40,11 @@ SIGNATURES = {
     "hifigan_head": ("svd_hifigan_head_step", [_P] * 6 + [_I] + [_P] * 2),
     "convnext_enc": ("svd_convnext_enc_step", [_P] * 6 + [_I] + [_P] * 4),
     "decode_attention": ("svd_decode_attention", [_I] + [_P] * 6 + [_I] * 5 + [_F, _P]),
+}
+# further entry points, by name: (source, C signature)
+EXTRA_ENTRY_POINTS = {
+    "svd_slow_attention": ("slow_decode", [_I, _I] + [_P] * 4 + [_I] + [_P] * 5 + [_I] * 4
+                           + [_P]),
 }
 
 _lock = threading.Lock()
@@ -94,16 +99,21 @@ def build_all() -> Dict[str, str]:
 
 
 def load(name: str):
-    """The entry point of `csrc/<name>.cu` as a ctypes function (built on
-    first use)."""
+    """The entry point of `csrc/<name>.cu`, or the entry point `name` of
+    EXTRA_ENTRY_POINTS, as a ctypes function (built on first use)."""
+    if name in EXTRA_ENTRY_POINTS:
+        src, argtypes = EXTRA_ENTRY_POINTS[name]
+        fn_name = name
+    else:
+        src = name
+        fn_name, argtypes = SIGNATURES[name]
     with _lock:
-        if name not in _libs:
-            path = library_path(name)
+        if src not in _libs:
+            path = library_path(src)
             if not path.exists():
                 build_all()
-            _libs[name] = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(_libs[name], fn_name)
+            _libs[src] = ctypes.CDLL(str(path))
+        fn = getattr(_libs[src], fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn

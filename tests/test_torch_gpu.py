@@ -51,6 +51,25 @@ def test_kernels_match_plain_versions_at_full_width():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_slow_step_kernel_matches_plain_at_split_edges(dtype):
+    """The slow step at pos 0, 1, around its attention's split edges and at
+    S - 2, and its attention alone at every pos of 0 .. 259 and beyond; NaN
+    cache rows >= pos are never read (checked inside).  bf16: the attention
+    within its rounding of the output."""
+    _need_card()
+    d = C.fast_slow_config(C.PipelineConfig()).arvc.decoder
+    f32 = dtype == torch.float32
+    agree, n, err, attn_err = chip_smoke.compare_slow_positions(
+        d, "cuda", dtype, chip_smoke.SLOW_POS, check=f32)
+    assert n == len(chip_smoke.SLOW_POS)
+    if f32:
+        assert agree == n and err <= chip_smoke.TOL and attn_err <= chip_smoke.TOL
+    else:
+        assert attn_err <= 0.05
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("size", ["full", "tiny"])
 def test_ring_step_kernel_matches_plain(size):
     """At the published width across a rebase (3583, 3584), and at the tiny

@@ -159,12 +159,15 @@ def test_unported_program_sets_are_refused():
 _CTYPE = {"int": "c_int", "float": "c_float"}
 
 
-@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES) + sorted(_build.EXTRA_ENTRY_POINTS))
 def test_ctypes_signature_matches_cuda_entry_point(name):
-    fn, argtypes = _build.SIGNATURES[name]
-    src = (PORT / "csrc" / f"{name}.cu").read_text()
+    if name in _build.EXTRA_ENTRY_POINTS:
+        fn, (source, argtypes) = name, _build.EXTRA_ENTRY_POINTS[name]
+    else:
+        source, (fn, argtypes) = name, _build.SIGNATURES[name]
+    src = (PORT / "csrc" / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
-    assert m, f"{fn} not found in csrc/{name}.cu"
+    assert m, f"{fn} not found in csrc/{source}.cu"
     params = [" ".join(p.split()) for p in m.group(1).split(",")]
     want = ["c_void_p" if "*" in p else _CTYPE[p.split()[0]] for p in params]
     assert [t.__name__ for t in argtypes] == want
