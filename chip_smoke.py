@@ -32,11 +32,18 @@ Phases, each reported on its own lines:
      rows) at pos 0, 1000 and 2046, float32: max abs error <= 1e-3 over
      the output and both caches; bf16 is reported; cache rows >= pos + 2
      poisoned with NaN must leave the output finite and unchanged;
-   then, in a child process (`python3 chip_smoke.py --slow-breakdown`), for
+   - for each bf16 token or code that differs from the plain version, the
+     plain race's lead of its choice over the kernel's (in logit units),
+     beside the largest logit difference kernel against plain;
+   then, in a child process (`python3 chip_smoke.py --breakdown`), for
    the slow step (bf16, sampled) at pos 150, 1000 and 1600, its device
    time a step by kernel family (torch.profiler), its CUDA-event
    time, the host's time to enqueue it, its time replayed from a CUDA
-   graph, and one layer's attention alone; then kernel and plain times
+   graph, and one layer's attention alone; for the fast loop (bf16,
+   sampled) its CUDA-event time, the host's time to enqueue it, its device
+   launches a call (torch.profiler: must be one) and its time replayed
+   from a CUDA graph where the cooperative launch can be captured; then
+   kernel and plain times
    (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
    time the card could take for the same work, and for the attention the
    time of `F.scaled_dot_product_attention` over the valid rows;
@@ -63,6 +70,7 @@ exits nonzero before any phase.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -121,11 +129,45 @@ def lm_params(cfg, device, dtype):
     return P.dual_ar_params(rp.dual_ar_params_np(cfg, seed=11), device, dtype)
 
 
+@contextlib.contextmanager
+def plain_logits():
+    """Collect the float32 logits the two plain decode versions hand their
+    sampler, in call order."""
+    from streamvoiceanon_tpu_torch.ops import fast_decode as fmod
+    from streamvoiceanon_tpu_torch.ops import slow_decode as smod
+
+    rec, orig = [], fmod.nucleus_sample
+
+    def sample(logits, gumbel, **kw):
+        rec.append(logits.detach().clone())
+        return orig(logits, gumbel, **kw)
+
+    fmod.nucleus_sample = smod.nucleus_sample = sample
+    try:
+        yield rec
+    finally:
+        fmod.nucleus_sample = smod.nucleus_sample = orig
+
+
+def flip_gap(logits, gumbel, samp, want: int, got: int) -> float:
+    """How far the plain sampler's choice `want` led the kernel's `got` in
+    the plain version's race, in logit units (the race gap times the
+    temperature when sampled); inf where `got` lies outside the nucleus."""
+    from streamvoiceanon_tpu_torch.ops.decode_common import nucleus_race
+
+    race = nucleus_race(logits, gumbel, **samp)
+    unit = 1.0 if samp["greedy"] else max(samp["temperature"], 1e-5)
+    return float(race[want] - race[got]) * unit
+
+
 def compare_kernels(cfg, device, dtype, cache_dtype, pos0: int, frames: int,
                     check: bool):
     """Run both kernels and their plain versions on the same inputs for
     `frames` frames, greedy then sampled.  Returns per-kernel stats: tokens
-    or codes that agree, frames, max abs error of the float outputs."""
+    or codes that agree, frames, max abs error of the float outputs, the
+    largest logit difference kernel against plain over the steps that had
+    the same inputs, and for each token or code that differs, (greedy,
+    frame, codebook step, `flip_gap`)."""
     import torch
 
     from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode, fast_decode_plain
@@ -141,8 +183,8 @@ def compare_kernels(cfg, device, dtype, cache_dtype, pos0: int, frames: int,
                norm_eps=cfg.norm_eps)
     fkw = dict(nq=cfg.num_codebooks, n_head=cfg.fast_n_head, head_dim=cfg.fast_head_dim,
                rope_base=cfg.rope_base, norm_eps=cfg.norm_eps)
-    stats = {"slow": {"agree": 0, "n": 0, "err": 0.0},
-             "fast": {"agree": 0, "n": 0, "err": 0.0}}
+    stats = {k: {"agree": 0, "n": 0, "err": 0.0, "logit_diff": 0.0, "flips": []}
+             for k in ("slow", "fast")}
     for greedy in (True, False):
         samp = dict(temperature=0.7, top_p=0.7, greedy=greedy)
         for f in range(frames):
@@ -154,21 +196,36 @@ def compare_kernels(cfg, device, dtype, cache_dtype, pos0: int, frames: int,
                 (1, cfg.num_codebooks, cfg.codebook_size), generator=g, device=device)))
             args = (p["layers"], x2, kc, vc, pos, p["norm"]["w"], p["output"]["w"], gs)
             ko = slow_decode_step(*args, **skw, **samp)
-            po = slow_decode_step_plain(*args, **skw, **samp)
+            with plain_logits() as rec:
+                po = slow_decode_step_plain(*args, **skw, **samp)
             err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ko[:3], po[:3]))
             st = stats["slow"]
             st["n"] += 1
             st["agree"] += int(torch.equal(ko[3], po[3]))
             st["err"] = max(st["err"], err)
+            st["logit_diff"] = max(st["logit_diff"], float(
+                (slow_decode_step.last_logits - rec[0]).abs().max()))
+            if not torch.equal(ko[3], po[3]):
+                st["flips"].append((greedy, f, 0, flip_gap(
+                    rec[0], gs.reshape(-1), samp, int(po[3][0]), int(ko[3][0]))))
             hidden = po[0][1:2]
             fargs = (p["fast_layers"], p["fast_norm"]["w"], p["fast_output"]["w"],
                      p["fast_embeddings"], p["codebook_embeddings"], hidden, gf)
             kf = fast_decode(*fargs, **fkw, **samp)
-            pf = fast_decode_plain(*fargs, **fkw, **samp)
+            with plain_logits() as rec:
+                pf = fast_decode_plain(*fargs, **fkw, **samp)
             st = stats["fast"]
             st["n"] += 1
             st["agree"] += int(torch.equal(kf[0], pf[0]))
             st["err"] = max(st["err"], float((kf[1].float() - pf[1].float()).abs().max()))
+            # steps up to the first differing code had the same inputs
+            differ = (kf[0][0] != pf[0][0]).nonzero()
+            s1 = int(differ[0, 0]) if len(differ) else cfg.num_codebooks - 1
+            st["logit_diff"] = max(st["logit_diff"], float(
+                (fast_decode.last_logits[: s1 + 1] - torch.stack(rec[: s1 + 1])).abs().max()))
+            if len(differ):
+                st["flips"].append((greedy, f, s1, flip_gap(
+                    rec[s1], gf[0, s1], samp, int(pf[0][0, s1]), int(kf[0][0, s1]))))
             if check:
                 if not torch.equal(ko[3], po[3]) or err > TOL:
                     raise AssertionError(f"slow step disagrees (greedy={greedy}, frame {f}): "
@@ -180,6 +237,42 @@ def compare_kernels(cfg, device, dtype, cache_dtype, pos0: int, frames: int,
             kc[:, pos : pos + 2] = po[1]
             vc[:, pos : pos + 2] = po[2]
     return stats
+
+
+def compare_fast(cfg, device, dtype, frames: int, check: bool):
+    """The fast loop alone against its plain version on random hidden rows,
+    greedy then sampled: (codes that agree, calls, max abs error of the
+    audio embedding).  Each call must be one launch."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode, fast_decode_plain
+
+    p = lm_params(cfg, device, dtype)
+    g = torch.Generator(device=device).manual_seed(37)
+    fkw = dict(nq=cfg.num_codebooks, n_head=cfg.fast_n_head, head_dim=cfg.fast_head_dim,
+               rope_base=cfg.rope_base, norm_eps=cfg.norm_eps)
+    agree, n, worst = 0, 0, 0.0
+    for greedy in (True, False):
+        samp = dict(temperature=0.7, top_p=0.7, greedy=greedy)
+        for f in range(frames):
+            hidden = torch.randn((1, cfg.fast_dim), generator=g, device=device).to(dtype)
+            gf = -torch.log(-torch.log(torch.rand(
+                (1, cfg.num_codebooks, cfg.codebook_size), generator=g, device=device)))
+            fargs = (p["fast_layers"], p["fast_norm"]["w"], p["fast_output"]["w"],
+                     p["fast_embeddings"], p["codebook_embeddings"], hidden, gf)
+            before = fast_decode.launches
+            kf = fast_decode(*fargs, **fkw, **samp)
+            if fast_decode.launches != before + 1:
+                raise AssertionError("fast loop: not one launch a call")
+            pf = fast_decode_plain(*fargs, **fkw, **samp)
+            err = float((kf[1].float() - pf[1].float()).abs().max())
+            n += 1
+            agree += int(torch.equal(kf[0], pf[0]))
+            worst = max(worst, err)
+            if check and (not torch.equal(kf[0], pf[0]) or err > TOL):
+                raise AssertionError(f"fast loop disagrees (greedy={greedy}, frame {f}): "
+                                     f"{kf[0].tolist()} vs {pf[0].tolist()}, err {err:.3e}")
+    return agree, n, worst
 
 
 def compare_slow_positions(cfg, device, dtype, positions, check: bool):
@@ -394,6 +487,113 @@ def slow_breakdown(cfg, device, positions, n: int = 30):
             + f"; one layer's attention alone {attn_ms:.4f} ms (CUDA events), "
             f"x {L} layers {L * attn_ms:.4f} ms")
     return out
+
+
+def fast_breakdown(cfg, device, n: int = 30):
+    """The fast loop (bf16, sampled): its CUDA-event time a call, the host's
+    time to enqueue one, its device launches a call and their device time
+    (torch.profiler over n calls; the launches must be one, the loop's own
+    kernel), and its time replayed from a CUDA graph, or why the
+    cooperative launch could not be captured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode, fast_decode_timeline
+
+    dt = torch.bfloat16
+    p = lm_params(cfg, device, dt)
+    g = torch.Generator(device=device).manual_seed(7)
+    hidden = torch.randn((1, cfg.fast_dim), generator=g, device=device).to(dt)
+    gf = -torch.log(-torch.log(torch.rand((1, cfg.num_codebooks, cfg.codebook_size),
+                                          generator=g, device=device)))
+    fkw = dict(nq=cfg.num_codebooks, n_head=cfg.fast_n_head, head_dim=cfg.fast_head_dim,
+               rope_base=cfg.rope_base, norm_eps=cfg.norm_eps, temperature=0.7, top_p=0.7,
+               greedy=False)
+    args = (p["fast_layers"], p["fast_norm"]["w"], p["fast_output"]["w"],
+            p["fast_embeddings"], p["codebook_embeddings"], hidden, gf)
+    call = lambda: fast_decode(*args, **fkw)
+    call_ms = cuda_ms(call, n)
+    phases = phase_split(fast_decode_timeline(*args, **fkw), cfg.n_fast_layer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    launches, own, device_ms = 0.0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        launches += e.count / n
+        device_ms += us / 1e3 / n
+        if "fast_loop_kernel" in e.key:
+            own += e.count / n
+    # the profiler may drop a record at the edge of its window: every launch
+    # it saw must be the loop's kernel, one a call
+    if launches != own or round(own) != 1:
+        raise AssertionError(f"fast loop: {launches:g} device launches a call "
+                             f"({own:g} of its kernel), expected one")
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        graph_ms = cuda_ms(graph.replay, n)
+        graph_note = f"{graph_ms:.4f} ms a call replayed from a CUDA graph"
+        del graph
+    except Exception as e:  # report, do not fail: capture is a measurement here
+        graph_ms = None
+        graph_note = f"no CUDA graph: the capture failed ({type(e).__name__}: {e})"
+    log(f"[2] fast loop bf16: {call_ms:.4f} ms a call (CUDA events), {host_ms:.4f} ms to "
+        f"enqueue one (host clock, 10 calls), {launches:g} device launch a call, "
+        f"{device_ms:.4f} ms of device time (torch.profiler over {n} calls); {graph_note}")
+    log("[2] fast loop bf16, one launch's phases (the card's global timer at each grid "
+        "barrier): " + ", ".join(
+            f"{k} {v['n']} x (work {v['work_us']:.2f} + barrier {v['wait_us']:.2f} us)"
+            for k, v in phases["kinds"].items())
+        + f"; all {phases['total_us']:.1f} us, of it in barriers {phases['wait_us']:.1f} us")
+    return {"ms": call_ms, "host_ms": host_ms, "launches": launches, "device_ms": device_ms,
+            "graph_ms": graph_ms, "phases": phases}
+
+
+def phase_split(stamps, L: int):
+    """Mean time of each kind of interval of the fast loop from the kernel's
+    barrier stamps (points, blocks, 2): work from the first block to leave
+    the last barrier to the last block to reach this one, then the barrier
+    from that arrival to the last block to leave it.  Kinds: the four phases
+    of a layer, the head, A after a step's sampler (layer 0 of steps > 0,
+    which also holds the sampler) and the last sampler."""
+    t = stamps.cpu().numpy().astype(np.int64)
+    arrive, leave = t[:, :, 0], t[:, :, 1]
+    work = (arrive[1:].max(1) - leave[:-1].min(1)) / 1e3
+    wait = (leave[1:].max(1) - arrive[1:].max(1)) / 1e3
+    per_step = 4 * L + 1
+    kinds = {}
+    for i in range(len(work)):
+        if i == len(work) - 1:
+            kind = "last sampler"
+        elif i % per_step == 4 * L:
+            kind = "head"
+        elif i % per_step == 0 and i > 0:
+            kind = "sampler+A"
+        else:
+            kind = "ABCD"[i % per_step % 4]
+        k = kinds.setdefault(kind, {"n": 0, "work_us": 0.0, "wait_us": 0.0})
+        k["n"] += 1
+        k["work_us"] += float(work[i])
+        k["wait_us"] += float(wait[i])
+    for k in kinds.values():
+        k["work_us"] /= k["n"]
+        k["wait_us"] /= k["n"]
+    return {"kinds": kinds, "total_us": float(leave[-1].max() - leave[0].min()) / 1e3,
+            "wait_us": float(wait.sum())}
 
 
 def bound(nbytes_: int, flops: int, peak: float):
@@ -961,6 +1161,15 @@ def main() -> int:
         f"max abs err {st16['slow']['err']:.3e}; fast loop codes "
         f"{st16['fast']['agree']}/{st16['fast']['n']}, max abs err "
         f"{st16['fast']['err']:.3e} (reported)")
+    for name in ("slow", "fast"):
+        st = st16[name]
+        flips = "; ".join(
+            f"{'greedy' if gr else 'sampled'} frame {f} step {k}: top-two gap {gap:.4g}"
+            for gr, f, k, gap in st["flips"]) or "none"
+        log(f"[2] bf16 {name}: largest logit difference kernel against plain "
+            f"{st['logit_diff']:.4g} (over the steps with the same inputs); tokens or codes "
+            f"that differ, each with the plain race's lead of its choice over the "
+            f"kernel's in logit units: {flips}")
     agree, n, err, aerr = compare_slow_positions(d, device, torch.float32, SLOW_POS, True)
     st32["slow"]["err"] = max(st32["slow"]["err"], err, aerr)
     log(f"[2] f32 slow step at pos {list(SLOW_POS)}: tokens {agree}/{n}, max abs err "
@@ -989,11 +1198,11 @@ def main() -> int:
         f"NaN rows >= pos + 2 never read")
     # torch.profiler and the CUDA-graph capture run in a child process, so
     # that nothing they leave behind can touch phase 3's timing
-    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--slow-breakdown"],
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--breakdown"],
                        capture_output=True, text=True, timeout=600)
     sys.stdout.write(r.stdout)
     if r.returncode != 0:
-        raise AssertionError(f"slow step breakdown failed:\n{r.stderr[-4000:]}")
+        raise AssertionError(f"decode breakdown failed:\n{r.stderr[-4000:]}")
     tk = time_kernels(d, device, 1000)
     for pos in SLOW_TIME_POS:
         t = tk["slow"] if pos == 1000 else time_kernels(d, device, pos, ("slow",))["slow"]
@@ -1068,8 +1277,8 @@ def main() -> int:
 
 
 def breakdown_main() -> int:
-    """`python3 chip_smoke.py --slow-breakdown`: phase 2's slow-step
-    breakdown alone (main runs it in a child process)."""
+    """`python3 chip_smoke.py --breakdown`: phase 2's slow-step and
+    fast-loop breakdowns alone (main runs them in a child process)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1080,8 +1289,9 @@ def breakdown_main() -> int:
 
     d = C.tpu_optimized(C.PipelineConfig()).arvc.decoder
     slow_breakdown(d, "cuda", SLOW_TIME_POS)
+    fast_breakdown(d, "cuda")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(breakdown_main() if sys.argv[1:] == ["--slow-breakdown"] else main())
+    sys.exit(breakdown_main() if sys.argv[1:] == ["--breakdown"] else main())

@@ -1,10 +1,11 @@
 // Device kernels shared by the dual-AR slow step (slow_decode.cu, which uses
-// the matvec and the sampler with its own split-row attention), the fast
-// codebook loop (fast_decode.cu), the windowed-transformer ring step
-// (wt_stream.cu, which uses the matvec and its own ring attention) and the
-// ConvNeXt encoder front (convnext_enc.cu, which uses the matvec).
+// the matvec and the sampler with its own split-row attention), the
+// windowed-transformer ring step (wt_stream.cu, which uses the matvec and its
+// own ring attention) and the ConvNeXt encoder front (convnext_enc.cu, which
+// uses the matvec).  The fast codebook loop (fast_decode.cu) is one
+// persistent kernel of its own and takes only the helpers below.
 //
-// Three kernels, launched in sequence by the host entry points:
+// Two kernels, launched in sequence by the host entry points:
 //
 //   matvec_kernel   y = x @ W for R (1 to 4) input rows, W (K, N) row-major
 //                   in float32 or bf16, float32 accumulation.  Optional fused
@@ -18,16 +19,9 @@
 //                   the K-chunks in a fixed order and applies the epilogue,
 //                   so every weight byte is read once per call, serves both
 //                   rows, and the result does not depend on block timing.
-//   attn_kernel     the fast loop's attention, one block per head: RoPE of
-//                   the fresh query and key, scores against cache rows < pos
-//                   plus the fresh row under one max and one denominator,
-//                   then the value mix.  Writes the fresh roped K and V rows.
 //   sample_kernel   one block over the vocabulary: softmax, 40-step
 //                   bisection for the nucleus threshold, Gumbel race, argmax
-//                   with the lowest index on ties.  For the fast loop it also
-//                   gathers the next step's input embedding and adds the
-//                   sampled code's codebook row to the running audio
-//                   embedding.
+//                   with the lowest index on ties.
 //
 // Rounding follows the TPU kernels (ops/pallas_slow_decode.py and
 // ops/pallas_fast_decode.py of the JAX package): activations are rounded
@@ -337,163 +331,7 @@ inline cudaError_t launch_matvec(const W* x, const W* norm_w, float eps, const W
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// decode attention
-// ---------------------------------------------------------------------------
-
-constexpr int AT_THREADS = 256;
-constexpr int AT_WARPS = AT_THREADS / 32;
-constexpr int AT_MAXD = 4;  // head_dim <= 128
-
-// The fast loop's arithmetic (ops/pallas_fast_decode.py): one query,
-// unrounded float32 query, float32 score products, weights normalized
-// before the value mix.
-template <typename W, typename C>
-__global__ void __launch_bounds__(AT_THREADS)
-attn_kernel(const W* __restrict__ qkv, int dim, int hd, const C* kc, const C* vc,
-            int pos, const float* __restrict__ freqs, C* k_new, C* v_new,
-            W* __restrict__ out, float scale) {
-  constexpr int T = 1;
-  extern __shared__ float sm[];
-  __shared__ float red[32];
-  __shared__ float denom[T];
-  const int h = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int P = pos + T;
-  float* qs = sm;             // (T, hd) queries as the score path sees them
-  float* kn = qs + T * hd;    // (T, hd) fresh keys as the score path sees them
-  float* vn = kn + T * hd;    // (T, hd) fresh values
-  float* sc = vn + T * hd;    // (T, P) scores, then weights
-  float* wred = sc + T * P;   // (AT_WARPS, T, hd) per-warp value sums
-
-  // 1. RoPE (interleaved pairs) of the fresh tokens at positions pos + t
-  for (int i = tid; i < T * hd; i += AT_THREADS) {
-    const int t = i / hd, d = i % hd;
-    const W* row = qkv + (size_t)t * 3 * dim;
-    const int base = h * hd + (d & ~1);
-    const float* f = freqs + ((size_t)(pos + t) * (hd / 2) + (d >> 1)) * 2;
-    const float c = f[0], s = f[1];
-    const float q0 = to_f<W>(row[base]), q1 = to_f<W>(row[base + 1]);
-    const float k0 = to_f<W>(row[dim + base]), k1 = to_f<W>(row[dim + base + 1]);
-    const float qr = (d & 1) ? q1 * c + q0 * s : q0 * c - q1 * s;
-    const float kr = rnd<W>((d & 1) ? k1 * c + k0 * s : k0 * c - k1 * s);
-    const float v = to_f<W>(row[2 * dim + h * hd + d]);
-    qs[i] = qr;
-    kn[i] = rnd<C>(kr);
-    vn[i] = v;
-    k_new[(size_t)t * dim + h * hd + d] = from_f<C>(kr);
-    v_new[(size_t)t * dim + h * hd + d] = from_f<C>(v);
-  }
-  __syncthreads();
-
-  // 2. scores: one warp per cache row, lanes across the head dims
-  for (int j = warp; j < pos; j += AT_WARPS) {
-    const C* krow = kc + (size_t)j * dim + h * hd;
-    float kv[AT_MAXD];
-#pragma unroll
-    for (int m = 0; m < AT_MAXD; ++m) {
-      const int d = lane + 32 * m;
-      kv[m] = d < hd ? to_f<C>(krow[d]) : 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float p = 0.f;
-#pragma unroll
-      for (int m = 0; m < AT_MAXD; ++m) {
-        const int d = lane + 32 * m;
-        if (d < hd) {
-          p += qs[t * hd + d] * kv[m];
-        }
-      }
-      p = warp_sum(p);
-      if (lane == 0) sc[t * P + j] = p * scale;
-    }
-  }
-  for (int i = warp; i < T * T; i += AT_WARPS) {  // fresh rows, causal j <= t
-    const int t = i / T, jn = i % T;
-    float p = 0.f;
-#pragma unroll
-    for (int m = 0; m < AT_MAXD; ++m) {
-      const int d = lane + 32 * m;
-      if (d < hd) {
-        p += qs[t * hd + d] * kn[jn * hd + d];
-      }
-    }
-    p = warp_sum(p);
-    if (lane == 0) sc[t * P + pos + jn] = jn <= t ? p * scale : -CUDART_INF_F;
-  }
-  __syncthreads();
-
-  // 3. one max and one denominator per query over old and fresh rows
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const int nv = pos + t + 1;
-    float m = -CUDART_INF_F;
-    for (int j = tid; j < nv; j += AT_THREADS) m = fmaxf(m, sc[t * P + j]);
-    m = block_reduce<true>(m, red, tid, AT_THREADS);
-    float s = 0.f;
-    for (int j = tid; j < P; j += AT_THREADS) {
-      const float e = j < nv ? expf(sc[t * P + j] - m) : 0.f;
-      sc[t * P + j] = e;
-      s += e;
-    }
-    s = block_reduce<false>(s, red, tid, AT_THREADS);
-    if (tid == 0) denom[t] = s;
-  }
-  __syncthreads();
-  for (int j = tid; j < T * P; j += AT_THREADS) sc[j] = sc[j] / denom[j / P];
-  __syncthreads();
-
-  // 4. value mix: warps over cache rows, lanes over dims
-  float acc[T][AT_MAXD];
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-#pragma unroll
-    for (int m = 0; m < AT_MAXD; ++m) acc[t][m] = 0.f;
-  for (int j = warp; j < pos; j += AT_WARPS) {
-    const C* vrow = vc + (size_t)j * dim + h * hd;
-#pragma unroll
-    for (int m = 0; m < AT_MAXD; ++m) {
-      const int d = lane + 32 * m;
-      if (d < hd) {
-        const float vv = to_f<C>(vrow[d]);
-#pragma unroll
-        for (int t = 0; t < T; ++t) acc[t][m] = fmaf(sc[t * P + j], vv, acc[t][m]);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-#pragma unroll
-    for (int m = 0; m < AT_MAXD; ++m) {
-      const int d = lane + 32 * m;
-      if (d < hd) wred[(warp * T + t) * hd + d] = acc[t][m];
-    }
-  __syncthreads();
-  for (int i = tid; i < T * hd; i += AT_THREADS) {
-    const int t = i / hd, d = i % hd;
-    float a = 0.f;
-    for (int w = 0; w < AT_WARPS; ++w) a += wred[(w * T + t) * hd + d];
-    for (int jn = 0; jn <= t; ++jn) a += sc[t * P + pos + jn] * vn[jn * hd + d];
-    out[(size_t)t * dim + h * hd + d] = from_f<W>(a);
-  }
-}
-
-template <typename W, typename C>
-inline cudaError_t launch_attn(const W* qkv, int n_head, int hd, const C* kc,
-                               const C* vc, int pos, const float* freqs, C* k_new,
-                               C* v_new, W* out, cudaStream_t st) {
-  constexpr int T = 1;
-  const size_t smem = sizeof(float) * ((size_t)(3 + AT_WARPS) * T * hd + (size_t)T * (pos + T));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<W, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  attn_kernel<W, C><<<n_head, AT_THREADS, smem, st>>>(
-      qkv, n_head * hd, hd, kc, vc, pos, freqs, k_new, v_new, out,
-      1.0f / sqrtf((float)hd));
-  return cudaGetLastError();
-}
+constexpr int AT_MAXD = 4;  // head dims a lane in the ring step's attention: <= 128
 
 // ---------------------------------------------------------------------------
 // sampling
@@ -504,16 +342,13 @@ constexpr int SM_VPT = 16;  // vocab <= 16384
 
 // PDL: launched after the slow step's output-head matvec, it waits for it
 // before reading the logits.
-template <typename W, bool PDL = false>
+template <bool PDL = false>
 __global__ void __launch_bounds__(SM_THREADS)
 sample_kernel(const float* __restrict__ logits, int V, const float* __restrict__ gumbel,
-              int greedy, float temperature, float top_p, int* __restrict__ token,
-              const W* __restrict__ emb, W* __restrict__ x_next, int dim,
-              const W* __restrict__ cb_rows, W* __restrict__ aemb, int mdim, int first) {
+              int greedy, float temperature, float top_p, int* __restrict__ token) {
   __shared__ float red[32];
   __shared__ float bv[32];
   __shared__ int bi[32];
-  __shared__ int tok_s;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   if constexpr (PDL) pdl_wait();
   float lg[SM_VPT], race[SM_VPT];
@@ -585,17 +420,8 @@ sample_kernel(const float* __restrict__ logits, int V, const float* __restrict__
       const int oi = __shfl_xor_sync(0xffffffffu, besti, o);
       if (ov > best || (ov == best && oi < besti)) { best = ov; besti = oi; }
     }
-    if (lane == 0) { tok_s = besti; *token = besti; }
+    if (lane == 0) *token = besti;
   }
-  __syncthreads();
-  const int code = tok_s;
-  if (x_next != nullptr)
-    for (int d = tid; d < dim; d += SM_THREADS) x_next[d] = emb[(size_t)code * dim + d];
-  if (aemb != nullptr)
-    for (int d = tid; d < mdim; d += SM_THREADS) {
-      const float c = to_f<W>(cb_rows[(size_t)code * mdim + d]);
-      aemb[d] = from_f<W>(first ? c : to_f<W>(aemb[d]) + c);
-    }
 }
 
 }  // namespace svd

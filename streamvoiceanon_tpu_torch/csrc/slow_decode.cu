@@ -329,9 +329,8 @@ cudaError_t slow_step(W* h, const W* wqkv, const W* wo, const W* w1, const W* w3
   // the semantic token reads the second (cond) row only
   SVD_TRY((launch_matvec<W, 1, EPI_STORE_F32, P>(h + dim, onorm, eps, wout, nullptr, dim,
                                                  V, partials, counters, logits, st)));
-  SVD_TRY(launch_pdl(sample_kernel<W, true>, dim3(1), dim3(SM_THREADS), st,
-                     (const float*)logits, V, gumbel, greedy, temperature, top_p, token,
-                     (const W*)nullptr, (W*)nullptr, 0, (const W*)nullptr, (W*)nullptr, 0, 0));
+  SVD_TRY(launch_pdl(sample_kernel<true>, dim3(1), dim3(SM_THREADS), st,
+                     (const float*)logits, V, gumbel, greedy, temperature, top_p, token));
 #undef SVD_TRY
   return cudaGetLastError();
 }

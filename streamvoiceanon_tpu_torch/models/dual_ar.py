@@ -62,8 +62,10 @@ class DecodeState(NamedTuple):
     trunc: Union[int, torch.Tensor] = 0
 
 
-def init_state(cfg: DualARConfig, batch: int = 1, cache_dtype=torch.float32,
+def init_state(cfg: DualARConfig, batch: int = 1, cache_dtype=torch.bfloat16,
                device=None) -> DecodeState:
+    """Zeroed caches in the layout cfg's flags ask for; bf16 by default, as
+    the JAX package's `init_state`."""
     if cfg.use_pallas_slow_decode:
         shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_local_heads * cfg.head_dim)
     else:

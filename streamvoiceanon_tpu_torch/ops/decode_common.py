@@ -42,31 +42,36 @@ def freqs_table(rows: int, head_dim: int, base: float, device: torch.device) -> 
     return torch.from_numpy(precompute_freqs_cis(rows, head_dim, base)).to(device)
 
 
+def nucleus_race(logits: torch.Tensor, gumbel: Optional[torch.Tensor], *,
+                 greedy: bool, temperature: float, top_p: float) -> torch.Tensor:
+    """(V,) float32 logits -> the (V,) values whose first maximum is the
+    token: the logits when greedy, else the exact nucleus filter (keep
+    {i : p_i > lo}, lo the 40-step bisection threshold of "probability mass
+    strictly above <= top_p"; -inf elsewhere) over the temperature, plus
+    the Gumbel noise."""
+    if greedy:
+        return logits
+    tmax = torch.full((), max(temperature, 1e-5), dtype=torch.float32, device=logits.device)
+    if top_p < 1.0:
+        e = torch.exp(logits - torch.max(logits))
+        probs = e / torch.sum(e)
+        lo = torch.zeros((), dtype=torch.float32, device=logits.device)
+        hi = torch.ones((), dtype=torch.float32, device=logits.device)
+        for _ in range(40):
+            mid = (lo + hi) * 0.5
+            kept = torch.sum(torch.where(probs > mid, probs, 0.0)) <= top_p
+            lo, hi = torch.where(kept, lo, mid), torch.where(kept, mid, hi)
+        logits = torch.where(probs > lo, logits, float("-inf"))
+    return logits / tmax + gumbel
+
+
 def nucleus_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor], *,
                    greedy: bool, temperature: float, top_p: float) -> torch.Tensor:
-    """(V,) float32 logits -> (1,) int32 token: greedy argmax, or the exact
-    nucleus filter (keep {i : p_i > lo}, lo the 40-step bisection threshold
-    of "probability mass strictly above <= top_p") then a Gumbel race.
-    Ties go to the lowest index.  No host synchronization."""
-    V = logits.shape[-1]
-    if greedy:
-        race = logits
-    else:
-        tmax = torch.full((), max(temperature, 1e-5), dtype=torch.float32,
-                          device=logits.device)
-        if top_p < 1.0:
-            e = torch.exp(logits - torch.max(logits))
-            probs = e / torch.sum(e)
-            lo = torch.zeros((), dtype=torch.float32, device=logits.device)
-            hi = torch.ones((), dtype=torch.float32, device=logits.device)
-            for _ in range(40):
-                mid = (lo + hi) * 0.5
-                kept = torch.sum(torch.where(probs > mid, probs, 0.0)) <= top_p
-                lo, hi = torch.where(kept, lo, mid), torch.where(kept, mid, hi)
-            logits = torch.where(probs > lo, logits, float("-inf"))
-        race = logits / tmax + gumbel
-    col = torch.arange(V, device=logits.device)
-    tok = torch.min(torch.where(race == torch.max(race), col, V))
+    """(V,) float32 logits -> (1,) int32 token: the first maximum of
+    `nucleus_race` (ties go to the lowest index).  No host synchronization."""
+    race = nucleus_race(logits, gumbel, greedy=greedy, temperature=temperature, top_p=top_p)
+    col = torch.arange(race.shape[-1], device=logits.device)
+    tok = torch.min(torch.where(race == torch.max(race), col, race.shape[-1]))
     return tok.to(torch.int32).reshape(1)
 
 

@@ -11,16 +11,40 @@ returns the next frame's audio embedding, the sum over codebooks of
 What bounds it on the card: bytes.  The 4 fast layers are 61 MB at bf16,
 above the 50 MB L2, so a design that re-reads them in each of the 8 steps
 moves about 490 MB per frame; reading them once would move 61 MB plus the
-1.5 MB head.  Its operations (one row per weight) are negligible.
+1.5 MB head.  Its operations (one row per weight) are negligible.  What
+held the first design back was latency: 176 dependent launches a frame,
+each a few microseconds of launch gap and round trips for 1 to 4 MB of
+weights.
 
-What this first design does about it (csrc/fast_decode.cu,
-csrc/decode_common.cuh): the same split-K matrix-vector, attention and
-sampling kernels as the slow step, launched step by step — so it is the
-re-reading design, ~8x the least traffic, plus ~350 launches per frame.
-Keeping the weights on chip across the 8 steps (a persistent kernel that
-partitions the layers' weights over the SMs' shared memory and registers,
-with a grid-wide barrier per step) is the change that would remove the
-re-reads; it is later work.
+The design (csrc/fast_decode.cu): one cooperative launch a frame, one block
+per SM, the whole loop inside it.  The TPU kernel's program order becomes
+grid-wide barriers, 4 a layer and 1 after the head (136 a frame at 4 layers
+and 8 codebooks):
+
+    A  RMSNorm, then qkv; q roped (float32), k roped and rounded, v into slot s
+    B  attention over slots <= s (every block, redundantly), then wo + residual
+    C  RMSNorm, then w1 and w3 with the SwiGLU gate
+    D  w2 + residual
+    head  RMSNorm, then the 1000 float32 logits
+
+After the head's barrier every block runs the same sampler on the logits,
+so all know the code without a further barrier: each reads
+`fast_embeddings[code]` as the next step's input, the owners of h's columns
+write them, and block 0 adds the codebook row to the audio embedding.
+
+Each block owns fixed output columns of every phase (`work_plan`, computed
+here) in units of 16 bytes a weight row, and sums each column over the whole
+K in a fixed order: no split-K partials, and the result does not depend on
+block timing.  A unit holds whole RoPE pairs, and the w1 and w3 columns of
+a unit share a block.  The weights are read in a packed layout (`packed`):
+each unit's K x 16-byte column slice contiguous, made once per weight tensor
+and kept.  What the TPU kernel keeps in VMEM stays on chip here in shared
+memory (`resident_plan`): each block keeps its first tasks of every slice
+resident, about 40 % of its weights (168 KB a block in bf16), loaded once by
+bulk copies (TMA) in step 0; the rest, about 40 MB a step, which L2 can
+hold, is streamed into a 36 KB ring by bulk copies issued before the
+barrier that precedes each phase.  The barrier is a release/acquire arrival
+count (`_bar_count`), and the sampler runs across the block.
 
 The plain version below repeats the TPU kernel's arithmetic and is the CPU
 path and the kernel's oracle.
@@ -28,6 +52,7 @@ path and the kernel's oracle.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,8 +60,22 @@ import torch
 
 from streamvoiceanon_tpu_torch.ops import _build
 from streamvoiceanon_tpu_torch.ops.decode_common import (
-    DTYPE_CODE, check_cuda, dot, freqs_table, matvec_scratch, nucleus_sample, rope_rows)
+    DTYPE_CODE, check_cuda, dot, freqs_table, nucleus_sample, rope_rows)
 from streamvoiceanon_tpu_torch.ops.norm import rms_norm
+
+# the kernel's phases, in the order of the plan's columns (csrc/fast_decode.cu)
+PHASES = ("qkv", "wo", "w13", "w2", "head")
+MAX_NQ = 16  # FD_MAXQ: attention slots
+MAX_VOCAB = 1024  # FD_VOC values a thread of the sampler
+MAX_ROW = 2560  # FD_ROW values a thread of a row (dim, inter, the audio embedding)
+MAX_ROUNDS = 4  # FD_MAXR: the attention's rounds of 32 / (head_dim / unit_cols) slots
+MAX_LAYERS = 8  # FD_MAXL: one mbarrier a layer for the resident weights
+MAX_SMEM = 232448  # shared memory a block may use on Hopper (227 KB)
+RING_BYTES = 36864  # FD_RING: one phase's streamed weights (3 x 12 KB or 1 x 36 KB)
+# the kernel's static shared memory: red, scal, part, bv, bi, the
+# resident offsets and the mbarriers
+STATIC_SMEM = (16 * 8 * 4 + 32 * 4 + 2 * 4 * 16 * 4 + 2 * 16 * 4
+               + (4 * MAX_LAYERS + 1) * 4 + (MAX_LAYERS + 2) * 8)
 
 
 def fast_decode_plain(
@@ -85,6 +124,132 @@ def fast_decode_plain(
     return torch.cat(codes).reshape(1, nq), aemb
 
 
+def unit_cols(dtype) -> int:
+    """Output columns of one plan unit: 16 bytes of a weight row."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def phase_units(dim: int, inter: int, V: int, dtype) -> Tuple[int, ...]:
+    """Units of each phase of PHASES (w13: one unit is a w1 and a w3 slice)."""
+    u = unit_cols(dtype)
+    return (3 * dim // u, dim // u, inter // u, dim // u, V // u)
+
+
+def unit_bytes(L: int, dim: int, inter: int) -> Tuple[int, ...]:
+    """Weight bytes of one unit of each phase over a codebook step (all L
+    layers; the head once)."""
+    return (L * dim * 16, L * dim * 16, L * 2 * dim * 16, L * inter * 16, dim * 16)
+
+
+def smem_bytes(dim: int, inter: int, V: int, nq: int, head_dim: int) -> int:
+    """Shared memory of one block besides its resident weights: a phase's
+    input row and the RoPE table in float32, the ring, and the static
+    buffers."""
+    return 4 * (max(dim, inter) + nq * head_dim) + RING_BYTES + STATIC_SMEM
+
+
+@functools.lru_cache(maxsize=16)
+def work_plan(L: int, dim: int, inter: int, V: int, n_blocks: int, dtype) -> np.ndarray:
+    """(n_blocks, 5, 2) int32: per block and phase of PHASES, the first unit
+    it owns and how many, a contiguous run.  The same for every layer.
+
+    Every block gets floor(units / n_blocks) units of a phase; the rest go
+    one each to the blocks with the fewest weight bytes so far, phases with
+    the largest units first (lowest block index on ties), so that a block's
+    bytes over a step stay near the mean."""
+    units = phase_units(dim, inter, V, dtype)
+    ub = unit_bytes(L, dim, inter)
+    load = np.zeros(n_blocks, dtype=np.int64)
+    counts = np.zeros((n_blocks, len(PHASES)), dtype=np.int64)
+    for p in sorted(range(len(PHASES)), key=lambda p: -ub[p]):
+        base, extra = divmod(units[p], n_blocks)
+        counts[:, p] = base
+        load += base * ub[p]
+        least = np.lexsort((np.arange(n_blocks), load))[:extra]
+        counts[least, p] += 1
+        load[least] += ub[p]
+    first = np.cumsum(counts, axis=0) - counts
+    return np.stack([first, counts], axis=-1).astype(np.int32)
+
+
+def slice_shapes(L: int, dim: int, inter: int) -> Tuple[Tuple[int, int, int], ...]:
+    """(phase index, matrices a unit, bytes a task) of each weight slice of
+    a codebook step in the kernel's order: layer by layer A, B, C, D, then
+    the head.  A task is one matrix's K x 16-byte slice of one unit."""
+    per_layer = ((0, 1, dim * 16), (1, 1, dim * 16), (2, 2, dim * 16), (3, 1, inter * 16))
+    return per_layer * L + ((4, 1, dim * 16),)
+
+
+@functools.lru_cache(maxsize=16)
+def resident_plan(L: int, dim: int, inter: int, V: int, n_blocks: int, dtype, nq: int,
+                  head_dim: int) -> np.ndarray:
+    """(n_blocks, 4 L + 1) int32: per block and slice (`slice_shapes`), how
+    many of its first tasks stay in shared memory across the nq steps.  The
+    rest of a slice is streamed each step: up to RING_BYTES into the ring
+    ahead of the phase, the remainder read from global memory in the phase.
+
+    Each block fills its own budget: first what its ring cannot take, slice
+    by slice, then more in slice order, to cut what is re-read each step."""
+    counts = work_plan(L, dim, inter, V, n_blocks, dtype)[:, :, 1]
+    shapes = slice_shapes(L, dim, inter)
+    budget = MAX_SMEM - smem_bytes(dim, inter, V, nq, head_dim)
+    res = np.zeros((n_blocks, len(shapes)), dtype=np.int32)
+    for b in range(n_blocks):
+        left = budget
+        tasks = [counts[b, p] * nmat for p, nmat, _ in shapes]
+        for i, (_, _, tb) in enumerate(shapes):
+            over = -(-(tasks[i] * tb - RING_BYTES) // tb)
+            r = max(0, min(tasks[i], over, left // tb))
+            res[b, i] = r
+            left -= r * tb
+        for i, (_, _, tb) in enumerate(shapes):
+            r = min(tasks[i] - res[b, i], left // tb)
+            res[b, i] += r
+            left -= r * tb
+    return res
+
+
+def resident_bytes(res: np.ndarray, L: int, dim: int, inter: int) -> np.ndarray:
+    """Each block's resident weight bytes."""
+    return res @ np.asarray([tb for _, _, tb in slice_shapes(L, dim, inter)])
+
+
+_PACKED: Dict[Tuple, Tuple[torch.Tensor, int, torch.Tensor]] = {}
+_PACKED_MAX = 24  # four weight sets of six matrices
+
+
+def packed(w: torch.Tensor) -> torch.Tensor:
+    """w (..., K, N) as (..., N / u, K, u), u = unit_cols: each unit's
+    column slice contiguous over the whole K.  Kept per source tensor and
+    its version counter (an in-place update packs again); the entry holds
+    the source, so its address is not reused while the entry lives."""
+    key = (w.data_ptr(), w.dtype, tuple(w.shape), w.device)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0] is w and hit[1] == w._version:
+        return hit[2]
+    u = unit_cols(w.dtype)
+    *lead, K, N = w.shape
+    p = w.reshape(*lead, K, N // u, u).transpose(-3, -2).contiguous()
+    _PACKED.pop(key, None)
+    while len(_PACKED) >= _PACKED_MAX:
+        _PACKED.pop(next(iter(_PACKED)))
+    _PACKED[key] = (w, w._version, p)
+    return p
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_on(L: int, dim: int, inter: int, V: int, n_blocks: int, dtype, nq: int,
+             head_dim: int, device: torch.device) -> Tuple[torch.Tensor, int]:
+    """The kernel's int table, a row a block: the 5 (first unit, units)
+    pairs, then the resident tasks of each slice; and the largest block's
+    resident bytes."""
+    ranges = work_plan(L, dim, inter, V, n_blocks, dtype)
+    res = resident_plan(L, dim, inter, V, n_blocks, dtype, nq, head_dim)
+    table = np.concatenate([ranges.reshape(n_blocks, -1), res], axis=1)
+    return (torch.from_numpy(np.ascontiguousarray(table)).to(device),
+            int(resident_bytes(res, L, dim, inter).max()))
+
+
 def fast_decode(
     fast_layers: Dict, fast_norm: torch.Tensor, fast_output: torch.Tensor,
     fast_embeddings: torch.Tensor, codebook_embeddings: torch.Tensor,
@@ -93,12 +258,36 @@ def fast_decode(
     temperature: float = 0.7, top_p: float = 0.7, greedy: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fast loop: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  Same arguments and results as `fast_decode_plain`."""
+    CPU tensors.  Same arguments and results as `fast_decode_plain`.  The
+    kernel's (nq, vocab) float32 logits stay in `fast_decode.last_logits`
+    for diagnostics."""
     kw = dict(nq=nq, n_head=n_head, head_dim=head_dim, rope_base=rope_base,
               norm_eps=norm_eps, temperature=temperature, top_p=top_p, greedy=greedy)
     if hidden.device.type == "cpu":
         return fast_decode_plain(fast_layers, fast_norm, fast_output, fast_embeddings,
                                  codebook_embeddings, hidden, gumbel, **kw)
+    codes, aemb, _ = _launch(fast_layers, fast_norm, fast_output, fast_embeddings,
+                             codebook_embeddings, hidden, gumbel, timeline=False, **kw)
+    return codes, aemb
+
+
+def fast_decode_timeline(
+    fast_layers: Dict, fast_norm: torch.Tensor, fast_output: torch.Tensor,
+    fast_embeddings: torch.Tensor, codebook_embeddings: torch.Tensor,
+    hidden: torch.Tensor, gumbel: Optional[torch.Tensor], **kw,
+) -> torch.Tensor:
+    """One launch of the kernel (arguments as `fast_decode`, CUDA tensors)
+    that also records, per block, the card's global time in ns where it
+    reaches and where it leaves each grid barrier: (points, blocks, 2)
+    int64, point 0 the start, then the nq (4 L + 1) barriers in order, the
+    last point the end."""
+    return _launch(fast_layers, fast_norm, fast_output, fast_embeddings,
+                   codebook_embeddings, hidden, gumbel, timeline=True, **kw)[2]
+
+
+def _launch(fast_layers, fast_norm, fast_output, fast_embeddings, codebook_embeddings,
+            hidden, gumbel, *, nq, n_head, head_dim, rope_base=10000.0, norm_eps=1e-5,
+            temperature=0.7, top_p=0.7, greedy=False, timeline=False):
     w = {k: fast_layers[k]["w"] for k in ("wqkv", "wo", "w1", "w3", "w2",
                                           "attention_norm", "ffn_norm")}
     wd = fast_output.dtype
@@ -108,10 +297,17 @@ def fast_decode(
     inter = w["w1"].shape[-1]
     V = fast_output.shape[-1]
     mdim = codebook_embeddings.shape[-1]
-    if (three != 3 * dim or n_head * head_dim != dim or head_dim % 2
-            or head_dim > 128 or dim % 8 or inter % 8 or V % 8 or V > 16384):
+    u = unit_cols(wd)
+    cph = head_dim // u  # 16-byte chunks of a head's row
+    if (three != 3 * dim or n_head * head_dim != dim or head_dim % u or cph > 32
+            or cph & (cph - 1) or (nq - 1) // (32 // max(cph, 1)) >= MAX_ROUNDS
+            or dim % u or inter % u or V % u
+            or not 1 <= nq <= MAX_NQ or V > MAX_VOCAB or max(dim, inter, mdim) > MAX_ROW
+            or not 1 <= L <= MAX_LAYERS
+            or smem_bytes(dim, inter, V, nq, head_dim) > MAX_SMEM):
         raise ValueError("fast_decode: unsupported geometry "
-                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, V={V})")
+                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, V={V}, "
+                         f"nq={nq})")
     if (fast_embeddings.shape != (V, dim) or codebook_embeddings.shape != (nq * V, mdim)
             or hidden.numel() != dim):
         raise ValueError("fast_decode: embedding tables or hidden have the wrong shape")
@@ -126,33 +322,52 @@ def fast_decode(
         gumbel = gumbel.reshape(-1).float().contiguous()
         check_cuda("fast_decode", {"gumbel": gumbel, "fast_output": fast_output})
     freqs = freqs_table(nq, head_dim, rope_base, dev)
+    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan, res_bytes = _plan_on(L, dim, inter, V, n_blocks, wd, nq, head_dim, dev)
+    mats = [packed(w[k]) for k in ("wqkv", "wo", "w1", "w3", "w2")] + [packed(fast_output)]
 
-    h = hidden.reshape(dim).to(device=dev, dtype=wd).contiguous().clone()
+    hidden = hidden.reshape(dim).to(device=dev, dtype=wd).contiguous()
+    h = torch.empty(dim, dtype=wd, device=dev)
     codes = torch.empty(nq, dtype=torch.int32, device=dev)
     aemb = torch.empty(mdim, dtype=wd, device=dev)
     kc = torch.empty((L, nq, dim), dtype=wd, device=dev)
     vc = torch.empty((L, nq, dim), dtype=wd, device=dev)
-    qkv = torch.empty(3 * dim, dtype=wd, device=dev)
-    attn = torch.empty(dim, dtype=wd, device=dev)
+    q = torch.empty(dim, dtype=torch.float32, device=dev)
     gate = torch.empty(inter, dtype=wd, device=dev)
-    logits = torch.empty(V, dtype=torch.float32, device=dev)
-    partials, counters = matvec_scratch(
-        1, [(dim, 3 * dim, 1), (dim, dim, 1), (dim, inter, 2), (inter, dim, 1),
-            (dim, V, 1)], dev)
+    logits = torch.empty((nq, V), dtype=torch.float32, device=dev)
+    stamps = (torch.zeros((nq * (4 * L + 1) + 2, n_blocks, 2), dtype=torch.int64, device=dev)
+              if timeline else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = _build.load("fast_decode")(
-        DTYPE_CODE[wd], ptr(h), ptr(gumbel), ptr(w["wqkv"]), ptr(w["wo"]),
-        ptr(w["w1"]), ptr(w["w3"]), ptr(w["w2"]), ptr(w["attention_norm"]),
-        ptr(w["ffn_norm"]), ptr(fast_norm), ptr(fast_output), ptr(fast_embeddings),
-        ptr(codebook_embeddings), ptr(freqs), ptr(codes), ptr(aemb), ptr(kc), ptr(vc),
-        ptr(qkv), ptr(attn), ptr(gate), ptr(logits), ptr(partials), ptr(counters),
+        DTYPE_CODE[wd], ptr(hidden), ptr(h), ptr(gumbel), *[ptr(m) for m in mats[:5]],
+        ptr(w["attention_norm"]), ptr(w["ffn_norm"]), ptr(fast_norm), ptr(mats[5]),
+        ptr(fast_embeddings), ptr(codebook_embeddings), ptr(freqs), ptr(plan), ptr(codes),
+        ptr(aemb), ptr(kc), ptr(vc), ptr(q), ptr(gate), ptr(logits), ptr(stamps),
+        ptr(_bar_count(dev)), n_blocks, res_bytes,
         L, nq, dim, n_head, head_dim, inter, V, mdim, float(norm_eps),
-        float(max(temperature, 1e-5)), float(top_p), int(bool(greedy)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(1.0 / np.sqrt(head_dim)), float(max(temperature, 1e-5)), float(top_p),
+        int(bool(greedy)), torch.cuda.current_stream(dev).cuda_stream)
+    if rc == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"fast_decode: a grid of {n_blocks} blocks, one per SM, cannot "
+                           "be resident at once (cudaErrorCooperativeLaunchTooLarge)")
     if rc != 0:
         raise RuntimeError(f"fast_decode: CUDA launch failed with error {rc}")
     fast_decode.launches += 1
-    return codes.reshape(1, nq), aemb.reshape(1, mdim)
+    fast_decode.last_logits = logits
+    return codes.reshape(1, nq), aemb.reshape(1, mdim), stamps
+
+
+COOPERATIVE_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
+_BAR_COUNTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _bar_count(dev: torch.device) -> torch.Tensor:
+    """The grid barrier's arrival count on `dev`: zeroed once, and left at a
+    multiple of the grid by every launch, so it is shared by all of them."""
+    if dev not in _BAR_COUNTS:
+        _BAR_COUNTS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _BAR_COUNTS[dev]
 
 
 fast_decode.launches = 0
+fast_decode.last_logits = None

@@ -117,7 +117,9 @@ def slow_decode_step(
     top_p: float = 0.7, greedy: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The slow step: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  Same arguments and results as `slow_decode_step_plain`."""
+    CPU tensors.  Same arguments and results as `slow_decode_step_plain`.
+    The kernel's (vocab,) float32 logits stay in `slow_decode_step.last_logits`
+    for diagnostics."""
     kw = dict(n_head=n_head, head_dim=head_dim, rope_base=rope_base,
               norm_eps=norm_eps, temperature=temperature, top_p=top_p, greedy=greedy)
     if x2.device.type == "cpu":
@@ -181,10 +183,12 @@ def slow_decode_step(
     if rc != 0:
         raise RuntimeError(f"slow_decode_step: CUDA launch failed with error {rc}")
     slow_decode_step.launches += 1
+    slow_decode_step.last_logits = logits
     return h, k_rows, v_rows, token
 
 
 slow_decode_step.launches = 0
+slow_decode_step.last_logits = None
 
 
 # must match SA_THREADS and SA_U in csrc/slow_decode.cu

@@ -107,7 +107,8 @@ def _prefilled(tiny, rng, n=12):
     emb = rng.standard_normal((1, n, jd.dim)).astype(np.float32)
     js, jh = jdar.prefill(jm, jd, jdar.init_state(jd, 1, jnp.float32), jnp.asarray(emb),
                           jnp.int32(n))
-    ts, th = tdar.prefill(tm, td, tdar.init_state(td), torch.from_numpy(emb))
+    ts, th = tdar.prefill(tm, td, tdar.init_state(td, 1, torch.float32),
+                          torch.from_numpy(emb))
     return js, jh, ts, th
 
 

@@ -69,9 +69,21 @@ def _prefilled(jcfg, jp, tcfg, tp, rng, n=12):
     js, _ = jdar.prefill(jp["model"], jcfg.decoder,
                          jdar.init_state(jcfg.decoder, 1, jnp.float32),
                          jnp.asarray(emb), jnp.int32(n))
-    ts, _ = tdar.prefill(tp["model"], tcfg.decoder, tdar.init_state(tcfg.decoder),
-                         torch.from_numpy(emb))
+    ts, _ = tdar.prefill(tp["model"], tcfg.decoder,
+                         tdar.init_state(tcfg.decoder, 1, torch.float32), torch.from_numpy(emb))
     return js, ts
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "per_head"])
+def test_init_state_default_cache_dtype_matches_jax(tiny, flat):
+    """Both packages default the KV cache to bf16, on either layout."""
+    jcfg, _, tcfg, _ = tiny
+    jd = drep(jcfg.decoder, use_pallas_slow_decode=flat)
+    td = drep(tcfg.decoder, use_pallas_slow_decode=flat)
+    js, ts = jdar.init_state(jd, 1), tdar.init_state(td, 1, device="meta")
+    assert js.k_cache.dtype == jnp.bfloat16 and js.v_cache.dtype == jnp.bfloat16
+    assert ts.k_cache.dtype == ts.v_cache.dtype == torch.bfloat16
+    assert ts.k_cache.shape == js.k_cache.shape or not flat
 
 
 def test_prefill_flat_layout_matches(tiny, rng):
@@ -229,7 +241,8 @@ def test_published_width_greedy_decode_matches_jax():
     prompt = rng.standard_normal((1, 40, d.dim)).astype(np.float32)
     js, _ = jdar.prefill(jp, d, jdar.init_state(d, 1, jnp.float32), jnp.asarray(prompt),
                          jnp.int32(40))
-    ts, _ = tdar.prefill(tp, tcfg, tdar.init_state(tcfg), torch.from_numpy(prompt))
+    ts, _ = tdar.prefill(tp, tcfg, tdar.init_state(tcfg, 1, torch.float32),
+                         torch.from_numpy(prompt))
     step = jax.jit(jdar.decode_frame, static_argnums=(1, 5))
     for f in range(3):
         emb2 = rng.standard_normal((1, 2, d.dim)).astype(np.float32)

@@ -50,6 +50,29 @@ def test_kernels_match_plain_versions_at_full_width():
         assert stats[name]["err"] <= chip_smoke.TOL
 
 
+TINY_FAST = C.DualARConfig(vocab_size=64, n_layer=1, n_head=2, dim=32, intermediate_size=64,
+                           head_dim=16, max_seq_len=16, codebook_size=40, num_codebooks=4,
+                           n_fast_layer=2, fast_dim=64, fast_n_head=4, fast_head_dim=16,
+                           fast_intermediate_size=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["full", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fast_loop_kernel_matches_plain(size, dtype):
+    """The persistent fast loop alone, one launch a call, greedy and sampled
+    on random hidden rows: at the published width (4 x 768, vocab 1000, 8
+    codebooks) and at a tiny one (2 x 64, vocab 40, 4 codebooks); float32
+    codes equal and the audio embedding within 1e-3; bf16 is run."""
+    _need_card()
+    d = C.fast_slow_config(C.PipelineConfig()).arvc.decoder if size == "full" else TINY_FAST
+    f32 = dtype == torch.float32
+    agree, n, err = chip_smoke.compare_fast(d, "cuda", dtype, 3, check=f32)
+    assert n == 6
+    if f32:
+        assert agree == n and err <= chip_smoke.TOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_slow_step_kernel_matches_plain_at_split_edges(dtype):
