@@ -563,6 +563,65 @@ def fast_breakdown(cfg, device, n: int = 30):
             "graph_ms": graph_ms, "phases": phases}
 
 
+def head_breakdown(hcfg, device, n: int = 30):
+    """The HiFiGAN head (float32, T0 = 4): its CUDA-event time a call, the
+    host's time to enqueue one, its device launches a call and their device
+    time by kernel (torch.profiler over n calls; the launches must equal
+    `device_launches`, the kernel's own plan), and its time replayed from a
+    CUDA graph."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamvoiceanon_tpu_torch.ops.hifigan import (
+        device_launches, head_stream_step, init_packed_state)
+
+    _, pw = head_params(hcfg, device)
+    g = torch.Generator(device=device).manual_seed(17)
+    st = init_packed_state(hcfg, 1, device=device)
+    x = torch.randn((1, 4, hcfg.num_mels), generator=g, device=device)
+    call = lambda: head_stream_step(pw, st, x, hcfg)
+    call_ms = cuda_ms(call, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = re.sub(r"\(.*", "", e.key.replace("(anonymous namespace)::", ""))
+        k = by_kernel.setdefault(name, [0.0, 0.0])
+        k[0] += e.count / n
+        k[1] += us / 1e3 / n
+    launches = sum(c for c, _ in by_kernel.values())
+    device_ms = sum(ms for _, ms in by_kernel.values())
+    want = device_launches(hcfg, 4)
+    if round(launches) != want:
+        raise AssertionError(f"head: {launches:g} device launches a call, its plan has {want}")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    graph_ms = cuda_ms(graph.replay, n)
+    del graph
+    log(f"[2] head f32 T0 4: {call_ms:.4f} ms a call (CUDA events), {host_ms:.4f} ms to "
+        f"enqueue one (host clock, 10 calls), {graph_ms:.4f} ms a call replayed from a CUDA "
+        f"graph; {launches:g} device launches a call (plan {want}), {device_ms:.4f} ms of "
+        f"device time (torch.profiler over {n} calls): " + ", ".join(
+            f"{k} {c:g} launches {ms:.4f} ms" for k, (c, ms) in by_kernel.items()))
+    return {"ms": call_ms, "host_ms": host_ms, "launches": launches, "device_ms": device_ms,
+            "graph_ms": graph_ms, "by_kernel": by_kernel}
+
+
 def phase_split(stamps, L: int):
     """Mean time of each kind of interval of the fast loop from the kernel's
     barrier stamps (points, blocks, 2): work from the first block to leave
@@ -1287,9 +1346,11 @@ def breakdown_main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from streamvoiceanon_tpu_torch import config as C
 
-    d = C.tpu_optimized(C.PipelineConfig()).arvc.decoder
+    cfg = C.tpu_optimized(C.PipelineConfig())
+    d = cfg.arvc.decoder
     slow_breakdown(d, "cuda", SLOW_TIME_POS)
     fast_breakdown(d, "cuda")
+    head_breakdown(cfg.vocoder.head, "cuda")
     return 0
 
 

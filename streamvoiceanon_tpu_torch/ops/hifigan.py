@@ -309,6 +309,29 @@ def _geometry(cfg: HiFiGANConfig, T0: int) -> List[int]:
     return geo
 
 
+def device_launches(cfg: HiFiGANConfig, T0: int) -> int:
+    """Device launches of one kernel call: one per conv, and a second where
+    `launch_conv` splits K (csrc/hifigan_head.cu)."""
+    geo = _geometry(cfg, T0)
+    part_cap = geo[12]
+    chans = stage_channels(cfg)
+    convs = [(T0, cfg.num_mels * cfg.pre_conv_kernel_size, cfg.upsample_initial_channel)]
+    T = T0
+    for s, (ci, co) in zip(cfg.upsample_rates, chans):
+        convs.append((T, 2 * ci, s * co))
+        T *= s
+        convs += [(T, k * co, co) for k, _, _, _ in res_slots(cfg)]
+    convs.append((T, cfg.post_conv_kernel_size * chans[-1][1], 1))
+    n = 0
+    for T, K, N in convs:
+        tiles = -(-N // 64) * -(-T // 64)
+        nch = -(-K // 16)
+        ks = max(1, min(-(-528 // tiles), -(-nch // 4), part_cap // (T * N)))
+        per = -(-nch // ks)
+        n += 1 + (-(-nch // per) > 1)
+    return n
+
+
 def head_stream_step(pw: Dict, state: PackedHeadState, x: torch.Tensor,
                      cfg: HiFiGANConfig) -> Tuple[PackedHeadState, torch.Tensor]:
     """The fused head step: the CUDA kernel for CUDA tensors, the plain
