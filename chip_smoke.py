@@ -24,7 +24,8 @@ Phases, each reported on its own lines:
      reported;
    - the fused HiFiGAN head over 8 consecutive chunks, each side carrying
      its own state, float32: max abs error <= 1e-3 over the waveform and
-     every packed tail;
+     every packed tail; before chunk 4 the kernel's kept scratch and split
+     partials are filled with NaN, which must not reach any output;
    - the fused ConvNeXt front over 8 consecutive chunks, each side
      carrying its own packed state, float32: max abs error <= 1e-3 over z
      and every packed buffer;
@@ -42,7 +43,10 @@ Phases, each reported on its own lines:
    graph, and one layer's attention alone; for the fast loop (bf16,
    sampled) its CUDA-event time, the host's time to enqueue it, its device
    launches a call (torch.profiler: must be one) and its time replayed
-   from a CUDA graph where the cooperative launch can be captured; then
+   from a CUDA graph where the cooperative launch can be captured; for the
+   HiFiGAN head (float32, T0 = 4) the same, its device launches a call
+   (must equal the launch plan's levels), the device span of a call and
+   each launch's advance; then
    kernel and plain times
    (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
    time the card could take for the same work, and for the attention the
@@ -565,10 +569,13 @@ def fast_breakdown(cfg, device, n: int = 30):
 
 def head_breakdown(hcfg, device, n: int = 30):
     """The HiFiGAN head (float32, T0 = 4): its CUDA-event time a call, the
-    host's time to enqueue one, its device launches a call and their device
-    time by kernel (torch.profiler over n calls; the launches must equal
-    `device_launches`, the kernel's own plan), and its time replayed from a
-    CUDA graph."""
+    host's time to enqueue one, its time replayed from a CUDA graph, and
+    from torch.profiler over n calls its device launches a call by kernel
+    (they must equal `device_launches`, the kernel's own plan), the device
+    span of a call (first launch's start to last launch's end) and each
+    launch's advance (its end less the previous launch's end).  Launches
+    chained by programmatic dependent launch overlap, so their summed spans
+    exceed the call's span; the advances add up to it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -588,6 +595,11 @@ def head_breakdown(hcfg, device, n: int = 30):
         call()
     host_ms = 1e3 * (time.perf_counter() - t0) / 10
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    graph_ms = cuda_ms(graph.replay, n)
+    del graph
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             call()
@@ -604,22 +616,30 @@ def head_breakdown(hcfg, device, n: int = 30):
         k[0] += e.count / n
         k[1] += us / 1e3 / n
     launches = sum(c for c, _ in by_kernel.values())
-    device_ms = sum(ms for _, ms in by_kernel.values())
     want = device_launches(hcfg, 4)
     if round(launches) != want:
         raise AssertionError(f"head: {launches:g} device launches a call, its plan has {want}")
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        call()
-    graph_ms = cuda_ms(graph.replay, n)
-    del graph
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    span_ms, advance_us = None, None
+    if len(spans) == n * want:
+        calls = np.asarray(spans, dtype=np.float64).reshape(n, want, 2)
+        ends = np.maximum.accumulate(calls[:, :, 1], axis=1)
+        span_ms = float(np.mean(ends[:, -1] - calls[:, 0, 0])) / 1e3
+        advance_us = np.mean(np.diff(np.concatenate([calls[:, :1, 0], ends], axis=1), axis=1),
+                             axis=0).tolist()
     log(f"[2] head f32 T0 4: {call_ms:.4f} ms a call (CUDA events), {host_ms:.4f} ms to "
         f"enqueue one (host clock, 10 calls), {graph_ms:.4f} ms a call replayed from a CUDA "
-        f"graph; {launches:g} device launches a call (plan {want}), {device_ms:.4f} ms of "
-        f"device time (torch.profiler over {n} calls): " + ", ".join(
+        f"graph; torch.profiler over {n} calls: {launches:g} device launches a call (plan "
+        f"{want}), device span a call "
+        + (f"{span_ms:.4f} ms" if span_ms is not None else "not available") + "; summed "
+        "launch spans by kernel: " + ", ".join(
             f"{k} {c:g} launches {ms:.4f} ms" for k, (c, ms) in by_kernel.items()))
-    return {"ms": call_ms, "host_ms": host_ms, "launches": launches, "device_ms": device_ms,
-            "graph_ms": graph_ms, "by_kernel": by_kernel}
+    log("[2] head f32 T0 4, each launch's advance in call order, us (torch.profiler, mean "
+        f"over {n} calls): " + (" ".join(f"{u:.2f}" for u in advance_us) if advance_us else
+                                f"not available ({len(spans)} device records for {n} calls)"))
+    return {"ms": call_ms, "host_ms": host_ms, "launches": launches, "span_ms": span_ms,
+            "graph_ms": graph_ms, "by_kernel": by_kernel, "advance_us": advance_us}
 
 
 def phase_split(stamps, L: int):
@@ -936,12 +956,14 @@ def head_leaves(state):
 
 def compare_head(hcfg, device, chunks: int, check: bool):
     """The fused head against its plain version over `chunks` chunks, each
-    side carrying its own state.  Returns the max abs error over the
-    waveforms and every packed tail."""
+    side carrying its own state; before the middle chunk the kernel's kept
+    scratch (activations and split partials) is filled with NaN, so that a
+    launch that reads what no earlier launch of its call wrote shows up.
+    Returns the max abs error over the waveforms and every packed tail."""
     import torch
 
     from streamvoiceanon_tpu_torch.ops.hifigan import (
-        head_stream_step, head_stream_step_plain, init_packed_state)
+        head_stream_step, head_stream_step_plain, init_packed_state, kept_scratch)
 
     _, pw = head_params(hcfg, device)
     g = torch.Generator(device=device).manual_seed(13)
@@ -949,6 +971,9 @@ def compare_head(hcfg, device, chunks: int, check: bool):
     worst = 0.0
     for c in range(chunks):
         x = torch.randn((1, 4, hcfg.num_mels), generator=g, device=device)
+        if c == chunks // 2:
+            scratch, floats = kept_scratch(hcfg, 4, device)
+            scratch[:floats] = float("nan")
         sk, wk = head_stream_step(pw, sk, x, hcfg)
         sp, wp = head_stream_step_plain(pw, sp, x, hcfg)
         err = max(float((a - b).abs().max()) for a, b in zip(
@@ -1244,8 +1269,8 @@ def main() -> int:
     log(f"[2] ring step at counts {list(RING_COUNTS)}: f32 max abs err "
         f"{st32['ring']['err']:.3e} (bound {TOL}); bf16 max abs err {ring16:.3e} (reported)")
     st32["head"] = {"err": compare_head(hcfg, device, 8, True)}
-    log(f"[2] head over 8 chunks, state carried: f32 max abs err "
-        f"{st32['head']['err']:.3e} (bound {TOL})")
+    log(f"[2] head over 8 chunks, state carried, the kept scratch NaN before chunk 4: f32 "
+        f"max abs err {st32['head']['err']:.3e} (bound {TOL})")
     st32["enc"] = {"err": compare_front(tcfg, device, 8, True)}
     log(f"[2] ConvNeXt front over 8 chunks, state carried: f32 max abs err "
         f"{st32['enc']['err']:.3e} (bound {TOL})")
@@ -1336,8 +1361,8 @@ def main() -> int:
 
 
 def breakdown_main() -> int:
-    """`python3 chip_smoke.py --breakdown`: phase 2's slow-step and
-    fast-loop breakdowns alone (main runs them in a child process)."""
+    """`python3 chip_smoke.py --breakdown`: phase 2's slow-step, fast-loop
+    and head breakdowns alone (main runs them in a child process)."""
     import torch
 
     if not torch.cuda.is_available():

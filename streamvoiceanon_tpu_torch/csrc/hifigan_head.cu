@@ -5,103 +5,173 @@
 // `head_stream_step` in ops/pallas_hifigan.py of the JAX package; see
 // streamvoiceanon_tpu_torch/ops/hifigan.py for the design note.
 //
-// One kernel, `conv_kernel`, does every launch: an implicit-GEMM causal
-// dilated conv on the CUDA cores in full float32 (no TF32).  Output row t
-// reads rows t + j*d (j < k) of [old tail; x], so the im2col matrix is never
-// built; SiLU of x is applied as it is loaded; bias, residual add, the
-// running branch sum (and the mean, at the last branch) and tanh are fused
-// into the epilogue.  The transposed upsample is the same kernel with k = 2,
-// d = 1 and a one-row tail: out[t*s + p] = in[t] . W[s+p] + in[t+1] . W[p]
-// is a (T, s*C_out) product against [wa; wb] whose row-major result IS the
-// de-interleaved (T*s, C_out) output, so no shuffle is needed.  Every launch
-// also writes its conv's new input tail (the last `rows` rows of [old tail;
-// x], which may span both) into the separate output state, so no launch
-// overwrites a tail it still reads.  The next K-chunk's loads are in flight
-// while the current one is multiplied.  Launches with few output tiles
-// split K across blocks; a second launch then sums the partial tiles, one
-// thread per output in a fixed order, so the result does not depend on
-// block timing.
+// One launch per dependency level, not per conv.  The level plan comes from
+// ops/hifigan.py `_geometry` as plain integers: conv_pre; per stage the
+// upsample, then 2 x dilations rounds, round r running conv r % 2 of
+// dilation r / 2 of every ResBlock branch side by side; conv_post.  At the
+// published geometry that is 37 launches for 97 convs.  Each branch keeps
+// its own first-conv buffer C_b and running residual D_b, and its last conv
+// leaves the branch's output in D_b; the next consumer (the next stage's
+// upsample, or conv_post) averages the branches as it loads a row,
+// ((D_0 + D_1) + D_2) / 3 in the plain version's order, then applies SiLU.
 //
-// Plain C interface for ctypes.  `geo` is a HOST int array (the layout is
-// written by ops/hifigan.py `_geometry`); `w`, `st_in` and `st_out` are HOST
-// arrays of DEVICE pointers:
+// `level_kernel` is an implicit-GEMM causal dilated conv on the CUDA cores
+// in full float32 (no TF32).  Its blocks walk the level's work list: per
+// conv, per 64 x 64 output tile, per K split (a tile's splits on
+// consecutive blocks).  Output row t reads rows t + j*d (j < k) of
+// [old tail; x], so the im2col matrix is never built; SiLU (and the branch
+// mean) of x is applied as it is loaded; bias, residual add and tanh are
+// fused into the epilogue.  The transposed upsample is the same conv with
+// k = 2, d = 1 and a one-row tail: out[t*s + p] = in[t] . W[s+p] +
+// in[t+1] . W[p] is a (T, s*C_out) product against [wa; wb] whose row-major
+// result IS the de-interleaved (T*s, C_out) output.  Every conv also writes
+// its new input tail (the last `rows` rows of [old tail; x]) into the
+// separate output state, so no launch overwrites a tail it still reads.
+// The next K-chunk's loads are in flight while the current one is
+// multiplied.  Where a tile's K is split, each block stores its partial
+// tile, fences and takes a ticket on the tile; the last to arrive sums the
+// partials in split order (so the result does not depend on block timing),
+// runs the epilogue and sets the ticket back to zero for the next launch.
+//
+// Levels are chained by programmatic dependent launch (PDL).  Before
+// `pdl_wait` a block only loads its first K-chunk's weights, which no
+// launch writes.  Everything else waits, because consecutive levels share
+// it: the activations (a round reads C_b or D_b that the previous round
+// wrote; a round rewrites D_b that the previous round read; an upsample
+// rewrites B that the last rounds read), the split partials and the
+// tickets (every level reuses them), and the state tails (the first level
+// of a call reads the tails the previous call wrote).  Every block waits
+// once, so a level ends only after the level before it has ended, and the
+// wait also orders it after every earlier level and call.
+//
+// Plain C interface for ctypes.  `geo` is a HOST int array (written by
+// ops/hifigan.py `_geometry`): a header of HDR ints, then per level its
+// conv count and one record of NF ints per conv (the Field enum below).
+// `w`, `st_in` and `st_out` are HOST arrays of DEVICE pointers:
 //   w      : pre_w, pre_b, per stage (wa, wb, ub, rw, rb), post_w, post_b
 //   st_in  : pre, per stage (ups, res), post      (PackedHeadState tails)
 //   st_out : the same layout, written in full
 // `x` (T0, num_mels) and `wav` (T0 * prod(rates)) are device pointers;
-// `scratch` holds 4 activation buffers of buf_elems floats and part_cap
-// floats of split-K partials.
+// `scratch` holds n_buf activation buffers of buf_elems floats, part_elems
+// floats of split partials, then n_ticket ints that are zero between calls.
+// Buffer ids in a record: 0 is x, 1 is wav, 2 + i scratch buffer i.
 // Returns the first CUDA error of a launch (0 when all were accepted).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace {
 
-constexpr int TM = 64;   // output rows per block   (mirrored in ops/hifigan.py)
-constexpr int TN = 64;   // output columns per block (mirrored in ops/hifigan.py)
-constexpr int KC = 16;   // K rows per shared-memory chunk
-constexpr int NT = 256;  // threads: 16 x 16, each 4 x 4 outputs
-constexpr int TARGET_BLOCKS = 528;  // four blocks per SM on 132 SMs
-constexpr int MIN_CHUNKS = 4;  // K-chunks per split at least
-constexpr int HDR = 13;  // header ints of `geo`
+using svd::launch_pdl;
+using svd::pdl_launch_dependents;
+using svd::pdl_wait;
+
+constexpr int TM = 64;       // output rows per block   (mirrored in ops/hifigan.py)
+constexpr int TN = 64;       // output columns per block (mirrored in ops/hifigan.py)
+constexpr int KC = 16;       // K rows per shared-memory chunk (mirrored)
+constexpr int NT = 256;      // threads: 16 x 16, each 4 x 4 outputs
+constexpr int MIN_BLOCKS = 3;  // resident blocks a SM: the register cap (TARGET_BLOCKS)
+constexpr int AP = TM + 2;   // A tile row pitch: the stores hit 32 banks
+constexpr int MAX_CONV = 4;  // convs in one level      (mirrored)
+constexpr int HDR = 5;       // header ints of `geo`: n_level, n_buf, buf_elems, part_elems, n_ticket
+
+// one conv's record in `geo`, in order (mirrored as CONV_FIELDS)
+enum Field {
+  F_X, F_X_N, F_SILU, F_T, F_CIN, F_K, F_D, F_N, F_W, F_W_OFF, F_W2, F_B, F_B_OFF,
+  F_BIAS_MOD, F_RESID, F_OUT, F_TANH, F_TAIL, F_TAIL_OFF, F_ROWS, F_ROWS_PAD,
+  F_TILES_M, F_TILES_N, F_KSPLIT, F_PER, NF
+};
 
 struct Conv {
   const float* tail;      // (rows_pad, Cin) old input tail; rows >= `rows` are kept
   float* new_tail;        // (rows_pad, Cin)
   int rows, rows_pad;
-  const float* x;         // (T, Cin) new input rows
-  int silu;               // SiLU of x as it is read (a tail holds SiLU'd rows)
-  int T, Cin, k, d;
+  const float* x;         // (T, Cin) new input rows: the mean of x_n buffers
+  long x_stride;          // elements from one of those buffers to the next
+  int x_n, silu;          // SiLU of x as it is read (a tail holds SiLU'd rows)
+  int T, Cin, k, d, N;
   const float* w;         // (k*Cin, N) tap-major rows; with w2, tap 0 only
   const float* w2;        // (Cin, N) tap-1 rows of the upsample, or null
   const float* b;         // bias, b[n % bias_mod]
-  int bias_mod, N;
+  int bias_mod;
   const float* resid;     // y += resid[t, n], or null
-  float* out;             // y stored, or null
-  float* acc;             // branch sum: 1 acc = y, 2 acc += y, 3 acc = (acc + y) / n_branch
-  int acc_mode, n_branch;
+  float* out;             // (T, N)
   int tanh_out;
-  float* partials;        // (ksplit, T, N) when K is split
-  int ksplit, per;        // K-chunk splits, chunks per split
+  int tiles_m, tiles_n, ksplit, per;  // output tiles; K-chunk splits, chunks per split
+};
+
+struct Level {
+  Conv c[MAX_CONV];
+  int n_conv;
+  float* part;   // TM * TN floats per block
+  int* tickets;  // one per output tile of the level, zero between launches
 };
 
 __device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); }
 
+// An element of x from its raw loads v[m] (m < x_n): the branches' mean,
+// summed in branch order and then divided as the plain version does, then
+// SiLU.
+__device__ __forceinline__ float x_value(const Conv& a, const float (&v)[MAX_CONV]) {
+  float s = v[0];
+  if (a.x_n > 1) {
+#pragma unroll
+    for (int m = 1; m < MAX_CONV; ++m)
+      if (m < a.x_n) s += v[m];
+    s /= (float)a.x_n;
+  }
+  return a.silu ? silu_f(s) : s;
+}
+
+__device__ __forceinline__ void load_x(const Conv& a, size_t o, float (&v)[MAX_CONV]) {
+#pragma unroll
+  for (int m = 0; m < MAX_CONV; ++m)
+    if (m < a.x_n) v[m] = a.x[m * a.x_stride + o];
+}
+
 // row r of [old tail; x], column c
 __device__ __forceinline__ float full_at(const Conv& a, int r, int c) {
   if (r < a.rows) return a.tail[(size_t)r * a.Cin + c];
-  const float v = a.x[(size_t)(r - a.rows) * a.Cin + c];
-  return a.silu ? silu_f(v) : v;
+  float v[MAX_CONV];
+  load_x(a, (size_t)(r - a.rows) * a.Cin + c, v);
+  return x_value(a, v);
 }
 
-__device__ __forceinline__ void epilogue(const Conv& a, int t, int n, float s) {
-  float y = s + a.b[n % a.bias_mod];
-  const size_t o = (size_t)t * a.N + n;
-  if (a.resid != nullptr) y += a.resid[o];
-  if (a.acc_mode == 1) a.acc[o] = y;
-  else if (a.acc_mode == 2) a.acc[o] = a.acc[o] + y;
-  else if (a.acc_mode == 3) a.acc[o] = (a.acc[o] + y) / (float)a.n_branch;
-  if (a.tanh_out) y = tanhf(y);
-  if (a.out != nullptr) a.out[o] = y;
-}
-
-// Gather this thread's 4 A elements (rows of [tail; x] at the taps) and 4 B
-// elements (weight rows) of K-chunk `ch` into registers.
-__device__ __forceinline__ void load_chunk(const Conv& a, int ch, int m0, int n0, int K,
-                                           int tid, float* ra, float* rb) {
+// The raw loads of this thread's 4 A elements of K-chunk `ch`, rows of
+// [tail; x] at the taps: a tail value in ra[u][0], or the branch values of
+// an x row (bit u of `xrow`).  Nothing waits on them before `a_value`, so
+// all are in flight together.
+__device__ __forceinline__ void load_a(const Conv& a, int ch, int m0, int K, int tid,
+                                       float (&ra)[4][MAX_CONV], unsigned& xrow) {
   const int k0 = ch * KC;
+  xrow = 0;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int i = tid + u * NT;
     const int t = i / KC, kk = i % KC, k = k0 + kk, gt = m0 + t;
-    float v = 0.f;
+    ra[u][0] = 0.f;
     if (k < K && gt < a.T) {
-      const int j = k / a.Cin, c = k - j * a.Cin;
-      v = full_at(a, gt + j * a.d, c);
+      const int j = k / a.Cin, c = k - j * a.Cin, r = gt + j * a.d;
+      if (r < a.rows) {
+        ra[u][0] = a.tail[(size_t)r * a.Cin + c];
+      } else {
+        xrow |= 1u << u;
+        load_x(a, (size_t)(r - a.rows) * a.Cin + c, ra[u]);
+      }
     }
-    ra[u] = v;
   }
+}
+
+__device__ __forceinline__ float a_value(const Conv& a, const float (&v)[MAX_CONV], bool x) {
+  return x ? x_value(a, v) : v[0];
+}
+
+// This thread's 4 B elements of K-chunk `ch`: weight rows.
+__device__ __forceinline__ void load_b(const Conv& a, int ch, int n0, int K, int tid,
+                                       float* rb) {
+  const int k0 = ch * KC;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int i = tid + u * NT;
@@ -117,22 +187,32 @@ __device__ __forceinline__ void load_chunk(const Conv& a, int ch, int m0, int n0
   }
 }
 
-__global__ void __launch_bounds__(NT) conv_kernel(const Conv a) {
-  static_assert(TM * KC == 4 * NT && KC * TN == 4 * NT, "4 loads per thread per tile");
-  __shared__ float As[KC][TM];
-  __shared__ float Bs[KC][TN];
+// One block's work item of conv `a`: output tile `tile` (the level's tile
+// tile0 + tile), K split q.  Inlined once per conv slot of the level, so
+// that every field of `a` is a fixed offset in the launch's parameters.
+__device__ __forceinline__ void conv_block(const Conv& a, const Level& L, int b, int tile0,
+                                           float (&As)[KC][AP], float (&Bs)[KC][TN],
+                                           int& am_last) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM, ks = blockIdx.z;
+  const int q = b % a.ksplit, tile = b / a.ksplit;
+  const int m0 = (tile / a.tiles_n) * TM, n0 = (tile % a.tiles_n) * TN;
   const int K = a.k * a.Cin;
   const int nch = (K + KC - 1) / KC;
-  const int c0 = ks * a.per, c1 = min(nch, c0 + a.per);
+  const int c0 = q * a.per, c1 = min(nch, c0 + a.per);
 
-  // the new tail: rows T .. T+rows of [old tail; x], then the kept rows
+  float ra[4][MAX_CONV], rb[4];
+  unsigned xrow;
+  load_b(a, c0, n0, K, tid, rb);  // weights: no launch writes them
+  pdl_wait();
+  pdl_launch_dependents();
+  load_a(a, c0, m0, K, tid, ra, xrow);
+
+  // the new tail: rows T .. T+rows of [old tail; x], then the kept rows;
+  // shared by the conv's blocks
   {
-    const int nb = gridDim.x * gridDim.y * gridDim.z;
-    const int bid = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    const int nb = a.tiles_m * a.tiles_n * a.ksplit;
     const int total = a.rows_pad * a.Cin;
-    for (int i = bid * NT + tid; i < total; i += nb * NT) {
+    for (int i = b * NT + tid; i < total; i += nb * NT) {
       const int r = i / a.Cin, c = i - r * a.Cin;
       a.new_tail[i] = r < a.rows ? full_at(a, a.T + r, c) : a.tail[i];
     }
@@ -146,17 +226,18 @@ __global__ void __launch_bounds__(NT) conv_kernel(const Conv a) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float ra[4], rb[4];
-  if (c0 < c1) load_chunk(a, c0, m0, n0, K, tid, ra, rb);
   for (int ch = c0; ch < c1; ++ch) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int i = tid + u * NT;
-      As[i % KC][i / KC] = ra[u];
+      As[i % KC][i / KC] = a_value(a, ra[u], xrow >> u & 1);
       Bs[i / TN][i % TN] = rb[u];
     }
     __syncthreads();
-    if (ch + 1 < c1) load_chunk(a, ch + 1, m0, n0, K, tid, ra, rb);
+    if (ch + 1 < c1) {
+      load_a(a, ch + 1, m0, K, tid, ra, xrow);
+      load_b(a, ch + 1, n0, K, tid, rb);
+    }
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       float av[4], bv[4];
@@ -173,51 +254,98 @@ __global__ void __launch_bounds__(NT) conv_kernel(const Conv a) {
     __syncthreads();
   }
 
+  if (a.ksplit > 1) {
+    // K split: store the partial (this thread's 16 values contiguous, the
+    // rows past T left out), then the last block of the tile to arrive sums
+    // the splits in order, two splits' loads in flight at a time
+    float4* pb = reinterpret_cast<float4*>(L.part + (size_t)blockIdx.x * (TM * TN)) + tid * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (m0 + ty + 16 * i < a.T) pb[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) am_last = atomicAdd(&L.tickets[tile0 + tile], 1) == a.ksplit - 1;
+    __syncthreads();
+    if (!am_last) return;
+    const float4* p0 = reinterpret_cast<const float4*>(
+                           L.part + (size_t)(blockIdx.x - q) * (TM * TN)) + tid * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int s = 0; s < a.ksplit; s += 2) {
+      const bool two = s + 1 < a.ksplit;
+      const float4* ps = p0 + (size_t)s * (TM * TN / 4);
+      float4 v[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (m0 + ty + 16 * i < a.T) {
+          v[0][i] = __ldcg(ps + i);
+          if (two) v[1][i] = __ldcg(ps + TM * TN / 4 + i);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (m0 + ty + 16 * i < a.T && (h == 0 || two)) {
+            acc[i][0] += v[h][i].x;
+            acc[i][1] += v[h][i].y;
+            acc[i][2] += v[h][i].z;
+            acc[i][3] += v[h][i].w;
+          }
+    }
+    if (tid == 0) L.tickets[tile0 + tile] = 0;  // ready for the next launch
+  }
+
+  // epilogue: bias, residual and tanh; every load first, so that none waits
+  // behind a store
+  float bias[4], res[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + tx + 16 * j;
+    bias[j] = n < a.N ? a.b[n % a.bias_mod] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      res[i][j] = a.resid != nullptr && t < a.T && n < a.N ? a.resid[(size_t)t * a.N + n] : 0.f;
+    }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
       if (t >= a.T || n >= a.N) continue;
-      if (a.ksplit == 1) epilogue(a, t, n, acc[i][j]);
-      else a.partials[((size_t)ks * a.T + t) * a.N + n] = acc[i][j];
+      float y = acc[i][j] + bias[j];
+      if (a.resid != nullptr) y += res[i][j];
+      if (a.tanh_out) y = tanhf(y);
+      a.out[(size_t)t * a.N + n] = y;
     }
 }
 
-// With K split across blocks: one thread per output sums the splits in
-// order (so the result does not depend on block timing), then the epilogue.
-__global__ void __launch_bounds__(NT) reduce_kernel(const Conv a) {
-  const int o = blockIdx.x * NT + threadIdx.x;
-  if (o >= a.T * a.N) return;
-  const size_t plane = (size_t)a.T * a.N;
-  float s = 0.f;
-  for (int q = 0; q < a.ksplit; ++q) s += a.partials[q * plane + o];
-  epilogue(a, o / a.N, o % a.N, s);
-}
-
-cudaError_t launch_conv(Conv a, float* partials, long part_cap, cudaStream_t st) {
-  const int tn = (a.N + TN - 1) / TN, tm = (a.T + TM - 1) / TM, tiles = tn * tm;
-  const int nch = (a.k * a.Cin + KC - 1) / KC;
-  long ks = (TARGET_BLOCKS + tiles - 1) / tiles;
-  const long most = (nch + MIN_CHUNKS - 1) / MIN_CHUNKS;
-  const long cap = part_cap / ((long)a.T * a.N);
-  ks = ks < most ? ks : most;
-  ks = ks < cap ? ks : cap;
-  if (ks < 1) ks = 1;
-  a.per = (int)((nch + ks - 1) / ks);
-  a.ksplit = (nch + a.per - 1) / a.per;
-  a.partials = partials;
-  conv_kernel<<<dim3(tn, tm, a.ksplit), NT, 0, st>>>(a);
-  if (a.ksplit > 1) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const int nout = a.T * a.N;
-    reduce_kernel<<<(nout + NT - 1) / NT, NT, 0, st>>>(a);
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) level_kernel(const __grid_constant__ Level L) {
+  static_assert(TM * KC == 4 * NT && KC * TN == 4 * NT, "4 loads per thread per tile");
+  static_assert(TM * TN == 16 * NT, "16 outputs per thread");
+  __shared__ float As[KC][AP];
+  __shared__ float Bs[KC][TN];
+  __shared__ int am_last;
+  // this block's work item: the level's convs in order, each its tiles,
+  // each tile its K splits
+  int b = blockIdx.x, tile0 = 0;
+#pragma unroll
+  for (int ci = 0; ci < MAX_CONV; ++ci) {
+    const Conv& c = L.c[ci];
+    const int nb = c.tiles_m * c.tiles_n * c.ksplit;
+    if (ci == L.n_conv - 1 || b < nb) {
+      conv_block(c, L, b, tile0, As, Bs, am_last);
+      return;
+    }
+    b -= nb;
+    tile0 += c.tiles_m * c.tiles_n;
   }
-  return cudaGetLastError();
 }
-
-inline int pad8(int n) { return (n + 7) / 8 * 8; }
 
 }  // namespace
 
@@ -226,87 +354,64 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
                                      const void* x, void* wav, int n_geo, void* scratch,
                                      void* stream) {
   if (n_geo < HDR) return (int)cudaErrorInvalidValue;
-  const int T0 = geo[0], num_mels = geo[1], C0 = geo[2], n_stage = geo[3];
-  const int k_pre = geo[4], pre_pad = geo[5], k_post = geo[6], post_pad = geo[7];
-  const int n_branch = geo[8], n_dil = geo[9];
-  const int buf_elems = geo[11], part_cap = geo[12];
-  const int n_slot = n_branch * n_dil * 2;
-  if (n_geo != HDR + 3 * n_stage + 4 * n_slot) return (int)cudaErrorInvalidValue;
-  const int* stg = geo + HDR;
-  const int* slots = stg + 3 * n_stage;
-  const cudaStream_t st = (cudaStream_t)stream;
-  float* A = (float*)scratch;  // stage input, then the branch sum (next input)
-  float* B = A + buf_elems;    // the upsample's output (every branch's input)
-  float* C = B + buf_elems;    // the first conv's output
-  float* D = C + buf_elems;    // a branch's running residual
-  float* part = D + buf_elems;
-  auto W = [&](int i) { return (const float*)w[i]; };
-  auto IN = [&](int i) { return (const float*)st_in[i]; };
-  auto OUT = [&](int i) { return (float*)st_out[i]; };
-  cudaError_t e;
-#define SVD_TRY(call) \
-  if ((e = (call)) != cudaSuccess) return (int)e
-
-  // conv_pre: x (T0, num_mels) -> A (T0, C0)
-  Conv a = {};
-  a.tail = IN(0); a.new_tail = OUT(0); a.rows = k_pre - 1; a.rows_pad = pre_pad;
-  a.x = (const float*)x; a.T = T0; a.Cin = num_mels; a.k = k_pre; a.d = 1;
-  a.w = W(0); a.b = W(1); a.bias_mod = C0; a.N = C0; a.out = A;
-  SVD_TRY(launch_conv(a, part, part_cap, st));
-
-  int T = T0, c_last = C0;
-  for (int i = 0; i < n_stage; ++i) {
-    const int s = stg[3 * i], ci = stg[3 * i + 1], co = stg[3 * i + 2];
-    const float* rw = W(5 + 5 * i);
-    const float* rb = W(6 + 5 * i);
-    const float* res_in = IN(2 + 2 * i);
-    float* res_out = OUT(2 + 2 * i);
-    // SiLU -> upsample: A (T, ci) -> B (T*s, co)
-    a = Conv{};
-    a.tail = IN(1 + 2 * i); a.new_tail = OUT(1 + 2 * i); a.rows = 1; a.rows_pad = 8;
-    a.x = A; a.silu = 1; a.T = T; a.Cin = ci; a.k = 2; a.d = 1;
-    a.w = W(2 + 5 * i); a.w2 = W(3 + 5 * i); a.b = W(4 + 5 * i); a.bias_mod = co;
-    a.N = s * co; a.out = B;
-    SVD_TRY(launch_conv(a, part, part_cap, st));
-    T *= s;
-    c_last = co;
-    int si = 0;
-    size_t wrow = 0;
-    for (int br = 0; br < n_branch; ++br) {
-      for (int di = 0; di < n_dil; ++di) {
-        const float* xr = di == 0 ? B : D;
-        for (int cv = 0; cv < 2; ++cv, ++si) {
-          const int k = slots[4 * si], d = slots[4 * si + 1];
-          const int rows = slots[4 * si + 2], off = slots[4 * si + 3];
-          a = Conv{};
-          a.tail = res_in + (size_t)off * co; a.new_tail = res_out + (size_t)off * co;
-          a.rows = rows; a.rows_pad = pad8(rows); a.silu = 1; a.T = T; a.Cin = co;
-          a.k = k; a.d = d; a.w = rw + wrow * co; a.b = rb + (size_t)si * co;
-          a.bias_mod = co; a.N = co;
-          if (cv == 0) {
-            a.x = xr; a.out = C;
-          } else {
-            a.x = C; a.resid = xr;
-            if (di == n_dil - 1) {
-              a.acc = A; a.n_branch = n_branch;
-              a.acc_mode = br == 0 ? 1 : (br == n_branch - 1 ? 3 : 2);
-            } else {
-              a.out = D;
-            }
-          }
-          wrow += (size_t)k * co;
-          SVD_TRY(launch_conv(a, part, part_cap, st));
-        }
-      }
-    }
+  const int n_level = geo[0], n_buf = geo[1];
+  const long buf_elems = geo[2], part_elems = geo[3];
+  // the level records must fill `geo` exactly
+  int p = HDR;
+  for (int l = 0; l < n_level; ++l) {
+    if (p >= n_geo || geo[p] < 1 || geo[p] > MAX_CONV) return (int)cudaErrorInvalidValue;
+    p += 1 + geo[p] * NF;
   }
-  // SiLU -> conv_post -> tanh: A (T, c_last) -> wav (T)
-  a = Conv{};
-  a.tail = IN(1 + 2 * n_stage); a.new_tail = OUT(1 + 2 * n_stage);
-  a.rows = k_post - 1; a.rows_pad = post_pad; a.x = A; a.silu = 1; a.T = T;
-  a.Cin = c_last; a.k = k_post; a.d = 1; a.w = W(2 + 5 * n_stage);
-  a.b = W(3 + 5 * n_stage); a.bias_mod = 1; a.N = 1; a.tanh_out = 1; a.out = (float*)wav;
-  SVD_TRY(launch_conv(a, part, part_cap, st));
-#undef SVD_TRY
+  if (p != n_geo) return (int)cudaErrorInvalidValue;
+
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* bufs = (float*)scratch;
+  float* part = bufs + n_buf * buf_elems;
+  int* tickets = (int*)(part + part_elems);
+  auto buf = [&](int id) -> float* {
+    if (id < 0) return nullptr;
+    if (id == 0) return (float*)x;
+    if (id == 1) return (float*)wav;
+    return bufs + (id - 2) * buf_elems;
+  };
+  p = HDR;
+  for (int l = 0; l < n_level; ++l) {
+    Level L = {};
+    L.n_conv = geo[p++];
+    L.part = part;
+    L.tickets = tickets;
+    int blocks = 0;
+    for (int i = 0; i < L.n_conv; ++i, p += NF) {
+      const int* f = geo + p;
+      Conv& a = L.c[i];
+      a.tail = (const float*)st_in[f[F_TAIL]] + f[F_TAIL_OFF];
+      a.new_tail = (float*)st_out[f[F_TAIL]] + f[F_TAIL_OFF];
+      a.rows = f[F_ROWS];
+      a.rows_pad = f[F_ROWS_PAD];
+      a.x = buf(f[F_X]);
+      a.x_stride = buf_elems;
+      a.x_n = f[F_X_N];
+      a.silu = f[F_SILU];
+      a.T = f[F_T];
+      a.Cin = f[F_CIN];
+      a.k = f[F_K];
+      a.d = f[F_D];
+      a.N = f[F_N];
+      a.w = (const float*)w[f[F_W]] + f[F_W_OFF];
+      a.w2 = f[F_W2] < 0 ? nullptr : (const float*)w[f[F_W2]];
+      a.b = (const float*)w[f[F_B]] + f[F_B_OFF];
+      a.bias_mod = f[F_BIAS_MOD];
+      a.resid = buf(f[F_RESID]);
+      a.out = buf(f[F_OUT]);
+      a.tanh_out = f[F_TANH];
+      a.tiles_m = f[F_TILES_M];
+      a.tiles_n = f[F_TILES_N];
+      a.ksplit = f[F_KSPLIT];
+      a.per = f[F_PER];
+      blocks += a.tiles_m * a.tiles_n * a.ksplit;
+    }
+    const cudaError_t e = launch_pdl(level_kernel, dim3(blocks), dim3(NT), st, L);
+    if (e != cudaSuccess) return (int)e;
+  }
   return 0;
 }

@@ -18,19 +18,34 @@ and T0 = 4 one call does about 2.6 GFLOP in float32 (the stage-1 ResBlocks,
 CUDA cores, and reads about 68 MB of weights (half of it the stage-0
 ResBlocks at 32 rows) against 3.35 TB/s: 0.039 ms against 0.020 ms.
 
-What this first design does about it (csrc/hifigan_head.cu): one
-implicit-GEMM conv kernel, launched once per conv (97 convs): 64 x 64
-output tiles, 4 x 4 per thread, full float32 on the CUDA cores (TF32 would
-miss the 1e-3 check), the dilated taps read straight from [tail; x] with
-SiLU on load and bias, residual, branch sum and tanh in the epilogue.  The
-upsample is the same kernel with two taps: its row-major (T, s*C_out)
-result is the de-interleaved (T*s, C_out) output.  Each block keeps the
-next K-chunk's loads in flight while it multiplies the current one.
-Launches with few output tiles split K across blocks (about four blocks
-per SM), and a second launch sums the splits in a fixed order.  Not yet
-done: the launches in sequence pay launch latency comparable to the
-arithmetic, the 64-row tiles are mostly empty at the 4- and 32-row stages,
-and nothing uses the tensor cores.
+What the design does about it (csrc/hifigan_head.cu): one launch per
+dependency level, 37 at the published geometry for 97 convs, planned here
+(`level_plan`, `_geometry`) and handed to the kernel as plain integers:
+conv_pre; per stage the upsample, then six rounds, round r running conv
+r % 2 of dilation r // 2 of all three ResBlock branches side by side (each
+branch with its own first-conv buffer and running residual); conv_post.
+The branch mean moves into its consumer: the next upsample and conv_post
+compute ((D_0 + D_1) + D_2) / 3 as they load a row, then SiLU.  A level's
+blocks walk its work list (per conv, per 64 x 64 output tile, per K
+split), one implicit-GEMM conv tile each: 4 x 4 outputs per thread, full
+float32 on the CUDA cores (TF32 would miss the 1e-3 check), the dilated
+taps read straight from [tail; x], the next K-chunk's raw loads in flight
+while the current one is multiplied, bias, residual and tanh in the
+epilogue.  The upsample is the same conv with two taps: its row-major
+(T, s*C_out) result is the de-interleaved (T*s, C_out) output.  K splits
+aim at one wave of blocks a level (`TARGET_BLOCKS`), one split length for
+the whole level so that blocks do equal work; the last block of a tile to
+take its ticket sums the partials in split order and runs the epilogue, so
+no second launch is needed and the result does not depend on block timing.
+Levels are chained by programmatic dependent launch: a block loads its
+first weights, then waits for the level before it, which guards every
+activation, partial, ticket and tail that consecutive levels share.  The
+scratch (activation buffers, partials, tickets) and the ctypes `geo` array
+are kept across calls (`kept_scratch`).  Not yet done: the tile loop is
+bound by instruction issue (about 3 us a K-chunk at three blocks a SM),
+its 64-row tiles are mostly empty at the 4- and 32-row levels and its
+64-column tiles at the 16- and 32-channel stages, and nothing uses the
+tensor cores.
 
 The plain version repeats the TPU kernel's arithmetic: each conv
 accumulates in float32, adds the bias in float32 and rounds once; SiLU and
@@ -40,6 +55,7 @@ tanh run in float32; the branches are averaged in float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -50,8 +66,20 @@ from streamvoiceanon_tpu_torch.ops import _build
 from streamvoiceanon_tpu_torch.ops.conv import ConvState, TransConvState
 from streamvoiceanon_tpu_torch.ops.decode_common import check_cuda
 
-# split-K partial buffers: at most this many splits of the largest output
-MAX_SPLITS = 64
+# the kernel's tiles and launch plan (csrc/hifigan_head.cu)
+TM = TN = 64  # output rows and columns a block
+KC = 16  # K rows a chunk
+TARGET_BLOCKS = 396  # blocks a level: one wave, MIN_BLOCKS (3) a SM on 132 SMs
+MIN_CHUNKS = 2  # K-chunks a split at least
+MAX_CONV = 4  # convs a level: the ResBlock branches
+HDR = 5  # header ints of `geo`
+# one conv's record in `geo`, in order (the `Field` enum of the CUDA source)
+CONV_FIELDS = ("x", "x_n", "silu", "T", "cin", "k", "d", "n", "w", "w_off", "w2", "b",
+               "b_off", "bias_mod", "resid", "out", "tanh", "tail", "tail_off", "rows",
+               "rows_pad", "tiles_m", "tiles_n", "ksplit", "per")
+# buffer ids in a record: the call's input, its waveform, then the scratch
+# buffers A, B, C_0.., D_0..
+BUF_X, BUF_WAV, BUF_FIRST = 0, 1, 2
 
 
 def _pad8(n: int) -> int:
@@ -282,54 +310,130 @@ def head_stream_step_plain(pw: Dict, state: PackedHeadState, x: torch.Tensor,
     return new, wav
 
 
-def _geometry(cfg: HiFiGANConfig, T0: int) -> List[int]:
-    """The `geo` int array of csrc/hifigan_head.cu: a 13-int header, then
-    (rate, C_in, C_out) per stage, then (k, d, rows, offset) per ResBlock
-    slot."""
-    chans = stage_channels(cfg)
+def _record(**f) -> Dict[str, int]:
+    return {**dict.fromkeys(CONV_FIELDS, 0), "x_n": 1, "d": 1, "w2": -1, "resid": -1, **f}
+
+
+def level_plan(cfg: HiFiGANConfig, T0: int) -> List[List[Dict[str, int]]]:
+    """The kernel's launches, one per dependency level, each a list of conv
+    records (`CONV_FIELDS`): conv_pre; per stage the upsample, then round r
+    of 2 x dilations, conv r % 2 of dilation r // 2 of every ResBlock
+    branch; conv_post.  Buffers: A (conv_pre's output), B (the upsample's),
+    per branch C_b (its first conv's output) and D_b (its running residual,
+    at the end its output); a stage's input after the first, and conv_post's,
+    is the mean of the D_b.  Every conv's K is split by `_split`."""
+    n_stage = len(cfg.upsample_rates)
+    nb = len(cfg.resblock_kernel_sizes)
+    n_dil = len(cfg.resblock_dilation_sizes[0])
+    if nb > MAX_CONV:
+        raise NotImplementedError(f"the fused HiFiGAN head runs at most {MAX_CONV} branches")
     slots = res_slots(cfg)
-    # (rows, columns) of every launch's output, for the scratch sizes
-    shapes = [(T0, cfg.upsample_initial_channel)]
+    A, B = BUF_FIRST, BUF_FIRST + 1
+    C = [BUF_FIRST + 2 + b for b in range(nb)]
+    D = [BUF_FIRST + 2 + nb + b for b in range(nb)]
+    k_pre, k_post, C0 = cfg.pre_conv_kernel_size, cfg.post_conv_kernel_size, \
+        cfg.upsample_initial_channel
+    levels = [[_record(x=BUF_X, T=T0, cin=cfg.num_mels, k=k_pre, n=C0, w=0, b=1,
+                     bias_mod=C0, out=A, tail=0, rows=k_pre - 1,
+                     rows_pad=_pad8(k_pre - 1))]]
     T = T0
-    for s, (ci, co) in zip(cfg.upsample_rates, chans):
-        shapes.append((T, s * co))
+    for i, (s, (ci, co)) in enumerate(zip(cfg.upsample_rates, stage_channels(cfg))):
+        levels.append([_record(x=A if i == 0 else D[0], x_n=1 if i == 0 else nb, silu=1, T=T,
+                             cin=ci, k=2, n=s * co, w=2 + 5 * i, w2=3 + 5 * i, b=4 + 5 * i,
+                             bias_mod=co, out=B, tail=1 + 2 * i, rows=1, rows_pad=8)])
         T *= s
-        shapes.append((T, co))
-    shapes.append((T, 1))
-    buf_elems = max(r * c for r, c in shapes)
-    geo = [T0, cfg.num_mels, cfg.upsample_initial_channel, len(chans),
-           cfg.pre_conv_kernel_size, _pad8(cfg.pre_conv_kernel_size - 1),
-           cfg.post_conv_kernel_size, _pad8(cfg.post_conv_kernel_size - 1),
-           len(cfg.resblock_kernel_sizes), len(cfg.resblock_dilation_sizes[0]),
-           res_rows(cfg), buf_elems, MAX_SPLITS * buf_elems]
-    for s, (ci, co) in zip(cfg.upsample_rates, chans):
-        geo += [s, ci, co]
-    for slot in slots:
-        geo += list(slot)
-    return geo
+        wrow = [0]
+        for k, _, _, _ in slots:
+            wrow.append(wrow[-1] + k * co)
+        for r in range(2 * n_dil):
+            di, cv = divmod(r, 2)
+            level = []
+            for br in range(nb):
+                si = br * 2 * n_dil + r
+                k, d, rows, off = slots[si]
+                xr = B if di == 0 else D[br]
+                level.append(_record(
+                    x=xr if cv == 0 else C[br], silu=1, T=T, cin=co, k=k, d=d, n=co,
+                    w=5 + 5 * i, w_off=wrow[si] * co, b=6 + 5 * i, b_off=si * co, bias_mod=co,
+                    resid=-1 if cv == 0 else xr, out=C[br] if cv == 0 else D[br],
+                    tail=2 + 2 * i, tail_off=off * co, rows=rows, rows_pad=_pad8(rows)))
+            levels.append(level)
+    c_last = stage_channels(cfg)[-1][1]
+    levels.append([_record(x=D[0], x_n=nb, silu=1, T=T, cin=c_last, k=k_post, n=1,
+                         w=2 + 5 * n_stage, b=3 + 5 * n_stage, bias_mod=1, out=BUF_WAV,
+                         tanh=1, tail=1 + 2 * n_stage, rows=k_post - 1,
+                         rows_pad=_pad8(k_post - 1))])
+    for level in levels:
+        _split(level)
+    return levels
+
+
+def _split(level: List[Dict[str, int]]) -> None:
+    """Tiles and K splits of one level: one chunk count a split (`per`) for
+    the whole level, the least of MIN_CHUNKS or more that keeps the level at
+    about TARGET_BLOCKS blocks, so that every block does about the same
+    work."""
+    for c in level:
+        c["tiles_m"], c["tiles_n"] = -(-c["T"] // TM), -(-c["n"] // TN)
+    nch = [-(-c["k"] * c["cin"] // KC) for c in level]
+    work = sum(c["tiles_m"] * c["tiles_n"] * n for c, n in zip(level, nch))
+    per = max(MIN_CHUNKS, -(-work // TARGET_BLOCKS))
+    for c, n in zip(level, nch):
+        c["per"] = min(per, n)
+        c["ksplit"] = -(-n // c["per"])
+
+
+def level_blocks(level: List[Dict[str, int]]) -> int:
+    return sum(c["tiles_m"] * c["tiles_n"] * c["ksplit"] for c in level)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(cfg: HiFiGANConfig, T0: int) -> Tuple[int, ...]:
+    """The `geo` int array of csrc/hifigan_head.cu: the header (levels,
+    scratch buffers, their size, partial floats, tickets), then per level
+    its conv count and each conv's record (`CONV_FIELDS`)."""
+    levels = level_plan(cfg, T0)
+    nb = len(cfg.resblock_kernel_sizes)
+    convs = [c for level in levels for c in level]
+    buf_elems = max(c["T"] * c["n"] for c in convs if c["out"] != BUF_WAV)
+    part_elems = max(level_blocks(level) for level in levels) * TM * TN
+    n_ticket = max(sum(c["tiles_m"] * c["tiles_n"] for c in level) for level in levels)
+    geo = [len(levels), 2 + 2 * nb, buf_elems, part_elems, n_ticket]
+    for level in levels:
+        geo.append(len(level))
+        for c in level:
+            geo += [c[f] for f in CONV_FIELDS]
+    return tuple(geo)
 
 
 def device_launches(cfg: HiFiGANConfig, T0: int) -> int:
-    """Device launches of one kernel call: one per conv, and a second where
-    `launch_conv` splits K (csrc/hifigan_head.cu)."""
-    geo = _geometry(cfg, T0)
-    part_cap = geo[12]
-    chans = stage_channels(cfg)
-    convs = [(T0, cfg.num_mels * cfg.pre_conv_kernel_size, cfg.upsample_initial_channel)]
-    T = T0
-    for s, (ci, co) in zip(cfg.upsample_rates, chans):
-        convs.append((T, 2 * ci, s * co))
-        T *= s
-        convs += [(T, k * co, co) for k, _, _, _ in res_slots(cfg)]
-    convs.append((T, cfg.post_conv_kernel_size * chans[-1][1], 1))
-    n = 0
-    for T, K, N in convs:
-        tiles = -(-N // 64) * -(-T // 64)
-        nch = -(-K // 16)
-        ks = max(1, min(-(-528 // tiles), -(-nch // 4), part_cap // (T * N)))
-        per = -(-nch // ks)
-        n += 1 + (-(-nch // per) > 1)
-    return n
+    """Device launches of one kernel call: one per level."""
+    return _geometry(cfg, T0)[0]
+
+
+_kept: Dict = {}
+
+
+def kept_scratch(cfg: HiFiGANConfig, T0: int, device) -> Tuple[torch.Tensor, int]:
+    """The scratch that the kernel's calls at this geometry on `device`
+    share (so calls on two streams must not overlap), and how many of its
+    leading floats are activations and split partials; the int tickets
+    after them are zero between launches."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # tensors name their card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _kept_plan(cfg, T0, dev)[2:]
+
+
+def _kept_plan(cfg: HiFiGANConfig, T0: int, dev: torch.device):
+    key = (cfg, T0, dev)
+    if key not in _kept:
+        geo = _geometry(cfg, T0)
+        n_level, n_buf, buf_elems, part_elems, n_ticket = geo[:HDR]
+        floats = n_buf * buf_elems + part_elems
+        _kept[key] = ((ctypes.c_int * len(geo))(*geo), len(geo),
+                      torch.zeros(floats + n_ticket, dtype=torch.float32, device=dev), floats)
+    return _kept[key]
 
 
 def head_stream_step(pw: Dict, state: PackedHeadState, x: torch.Tensor,
@@ -359,17 +463,14 @@ def head_stream_step(pw: Dict, state: PackedHeadState, x: torch.Tensor,
     dev = check_cuda("head_stream_step", named, torch.float32)
 
     T0 = x.shape[1]
-    geo = _geometry(cfg, T0)
-    buf_elems, part_cap = geo[11], geo[12]
+    geo_c, n_geo, scratch, _ = _kept_plan(cfg, T0, dev)
     st_out = [torch.empty_like(t) for t in st_in]
     wav = torch.empty((1, T0 * math.prod(cfg.upsample_rates)), dtype=torch.float32, device=dev)
-    scratch = torch.empty(4 * buf_elems + part_cap, dtype=torch.float32, device=dev)
-    geo_c = (ctypes.c_int * len(geo))(*geo)
     arr = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     w_c, in_c, out_c = arr(w), arr(st_in), arr(st_out)
     rc = _build.load("hifigan_head")(
         ctypes.addressof(geo_c), ctypes.addressof(w_c), ctypes.addressof(in_c),
-        ctypes.addressof(out_c), x.data_ptr(), wav.data_ptr(), len(geo),
+        ctypes.addressof(out_c), x.data_ptr(), wav.data_ptr(), n_geo,
         scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"head_stream_step: CUDA launch failed with error {rc}")
