@@ -15,23 +15,29 @@
 // upsample, or conv_post) averages the branches as it loads a row,
 // ((D_0 + D_1) + D_2) / 3 in the plain version's order, then applies SiLU.
 //
-// `level_kernel` is an implicit-GEMM causal dilated conv on the CUDA cores
-// in full float32 (no TF32).  Its blocks walk the level's work list: per
-// conv, per 64 x 64 output tile, per K split (a tile's splits on
-// consecutive blocks).  Output row t reads rows t + j*d (j < k) of
-// [old tail; x], so the im2col matrix is never built; SiLU (and the branch
-// mean) of x is applied as it is loaded; bias, residual add and tanh are
-// fused into the epilogue.  The transposed upsample is the same conv with
-// k = 2, d = 1 and a one-row tail: out[t*s + p] = in[t] . W[s+p] +
-// in[t+1] . W[p] is a (T, s*C_out) product against [wa; wb] whose row-major
-// result IS the de-interleaved (T*s, C_out) output.  Every conv also writes
-// its new input tail (the last `rows` rows of [old tail; x]) into the
-// separate output state, so no launch overwrites a tail it still reads.
-// The next K-chunk's loads are in flight while the current one is
-// multiplied.  Where a tile's K is split, each block stores its partial
-// tile, fences and takes a ticket on the tile; the last to arrive sums the
-// partials in split order (so the result does not depend on block timing),
-// runs the epilogue and sets the ticket back to zero for the next launch.
+// `level_kernel<TM, TN>` is an implicit-GEMM causal dilated conv on the CUDA
+// cores in full float32 (no TF32).  Its blocks walk the level's work list:
+// per conv, per TM x TN output tile, per K split (a tile's splits on
+// consecutive blocks).  The plan gives each level the tile with the least
+// padding: 16 x 64 at conv_pre and the first upsample (4 rows), 32 x 64 at
+// the 32-row stage, 64 x 32 at the 16- and 32-channel stages, 64 x 64
+// elsewhere.  Output row t reads rows t + j*d (j < k) of [old tail; x], so
+// the im2col matrix is never built; the next K-chunk's raw loads are in
+// flight while the current one is multiplied, and SiLU (and the branch
+// mean) of x is applied as they are stored to shared memory; bias,
+// residual add and tanh are fused into the epilogue, its loads issued
+// before its stores.  The transposed upsample is the same conv with k = 2,
+// d = 1 and a one-row tail: out[t*s + p] = in[t] . W[s+p] + in[t+1] . W[p]
+// is a (T, s*C_out) product against [wa; wb] whose row-major result IS the
+// de-interleaved (T*s, C_out) output.  Every conv also writes its new input
+// tail (the last `rows` rows of [old tail; x]) into the separate output
+// state, so no launch overwrites a tail it still reads.  Where a tile's K
+// is split, each block stores its partial tile (element e of thread tid at
+// e * NT + tid, so that a warp's accesses are contiguous), fences and takes
+// a ticket on the tile; the last to arrive sums the partials in split
+// order (so the result does not depend on block timing), runs the epilogue
+// and sets the ticket back to zero for the next launch.  Splits aim at one
+// wave of blocks a level: MIN_BLOCKS resident blocks a SM, 396 on 132 SMs.
 //
 // Levels are chained by programmatic dependent launch (PDL).  Before
 // `pdl_wait` a block only loads its first K-chunk's weights, which no
@@ -45,8 +51,9 @@
 // wait also orders it after every earlier level and call.
 //
 // Plain C interface for ctypes.  `geo` is a HOST int array (written by
-// ops/hifigan.py `_geometry`): a header of HDR ints, then per level its
-// conv count and one record of NF ints per conv (the Field enum below).
+// ops/hifigan.py `_geometry`): a header of HDR ints, then per level LVL
+// ints (conv count, tile rows, tile columns) and one record of NF ints per
+// conv (the Field enum below).
 // `w`, `st_in` and `st_out` are HOST arrays of DEVICE pointers:
 //   w      : pre_w, pre_b, per stage (wa, wb, ub, rw, rb), post_w, post_b
 //   st_in  : pre, per stage (ups, res), post      (PackedHeadState tails)
@@ -68,14 +75,15 @@ using svd::launch_pdl;
 using svd::pdl_launch_dependents;
 using svd::pdl_wait;
 
-constexpr int TM = 64;       // output rows per block   (mirrored in ops/hifigan.py)
-constexpr int TN = 64;       // output columns per block (mirrored in ops/hifigan.py)
-constexpr int KC = 16;       // K rows per shared-memory chunk (mirrored)
-constexpr int NT = 256;      // threads: 16 x 16, each 4 x 4 outputs
+constexpr int KC = 16;         // K rows per shared-memory chunk (mirrored in ops/hifigan.py)
+constexpr int NT = 256;        // threads: 16 x 16, each (TM / 16) x (TN / 16) outputs
 constexpr int MIN_BLOCKS = 3;  // resident blocks a SM: the register cap (TARGET_BLOCKS)
-constexpr int AP = TM + 2;   // A tile row pitch: the stores hit 32 banks
-constexpr int MAX_CONV = 4;  // convs in one level      (mirrored)
-constexpr int HDR = 5;       // header ints of `geo`: n_level, n_buf, buf_elems, part_elems, n_ticket
+constexpr int PART = 4096;     // floats of split partial a block: the largest tile
+constexpr int MAX_CONV = 4;    // convs in one level (mirrored)
+constexpr int HDR = 5;         // header ints of `geo`: n_level, n_buf, buf_elems, part_elems, n_ticket
+constexpr int LVL = 3;         // ints before a level's records: n_conv, TM, TN
+// the tiles (TM, TN) a level may take: level_kernel<16, 64>, level_kernel<32, 64>,
+// level_kernel<64, 64>, level_kernel<64, 32> (mirrored as TILES)
 
 // one conv's record in `geo`, in order (mirrored as CONV_FIELDS)
 enum Field {
@@ -105,7 +113,7 @@ struct Conv {
 struct Level {
   Conv c[MAX_CONV];
   int n_conv;
-  float* part;   // TM * TN floats per block
+  float* part;   // PART floats per block
   int* tickets;  // one per output tile of the level, zero between launches
 };
 
@@ -139,196 +147,210 @@ __device__ __forceinline__ float full_at(const Conv& a, int r, int c) {
   return x_value(a, v);
 }
 
-// The raw loads of this thread's 4 A elements of K-chunk `ch`, rows of
-// [tail; x] at the taps: a tail value in ra[u][0], or the branch values of
-// an x row (bit u of `xrow`).  Nothing waits on them before `a_value`, so
-// all are in flight together.
-__device__ __forceinline__ void load_a(const Conv& a, int ch, int m0, int K, int tid,
-                                       float (&ra)[4][MAX_CONV], unsigned& xrow) {
-  const int k0 = ch * KC;
-  xrow = 0;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = tid + u * NT;
-    const int t = i / KC, kk = i % KC, k = k0 + kk, gt = m0 + t;
-    ra[u][0] = 0.f;
-    if (k < K && gt < a.T) {
-      const int j = k / a.Cin, c = k - j * a.Cin, r = gt + j * a.d;
-      if (r < a.rows) {
-        ra[u][0] = a.tail[(size_t)r * a.Cin + c];
-      } else {
-        xrow |= 1u << u;
-        load_x(a, (size_t)(r - a.rows) * a.Cin + c, ra[u]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ float a_value(const Conv& a, const float (&v)[MAX_CONV], bool x) {
   return x ? x_value(a, v) : v[0];
 }
 
-// This thread's 4 B elements of K-chunk `ch`: weight rows.
-__device__ __forceinline__ void load_b(const Conv& a, int ch, int n0, int K, int tid,
-                                       float* rb) {
-  const int k0 = ch * KC;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = tid + u * NT;
-    const int kk = i / TN, nn = i % TN, k = k0 + kk, n = n0 + nn;
-    float v = 0.f;
-    if (k < K && n < a.N) {
-      const float* row = (a.w2 != nullptr && k >= a.Cin)
-                             ? a.w2 + (size_t)(k - a.Cin) * a.N
-                             : a.w + (size_t)k * a.N;
-      v = __ldg(row + n);
-    }
-    rb[u] = v;
-  }
-}
+template <int TM, int TN>
+struct Tile {
+  static constexpr int MI = TM / 16, NJ = TN / 16;  // outputs a thread: rows, columns
+  static constexpr int AP = TM + 2;  // A tile row pitch: the stores hit 32 banks
+  static_assert(TM * TN <= PART && TM % 16 == 0 && TN % 16 == 0, "tile");
 
-// One block's work item of conv `a`: output tile `tile` (the level's tile
-// tile0 + tile), K split q.  Inlined once per conv slot of the level, so
-// that every field of `a` is a fixed offset in the launch's parameters.
-__device__ __forceinline__ void conv_block(const Conv& a, const Level& L, int b, int tile0,
-                                           float (&As)[KC][AP], float (&Bs)[KC][TN],
-                                           int& am_last) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q = b % a.ksplit, tile = b / a.ksplit;
-  const int m0 = (tile / a.tiles_n) * TM, n0 = (tile % a.tiles_n) * TN;
-  const int K = a.k * a.Cin;
-  const int nch = (K + KC - 1) / KC;
-  const int c0 = q * a.per, c1 = min(nch, c0 + a.per);
-
-  float ra[4][MAX_CONV], rb[4];
-  unsigned xrow;
-  load_b(a, c0, n0, K, tid, rb);  // weights: no launch writes them
-  pdl_wait();
-  pdl_launch_dependents();
-  load_a(a, c0, m0, K, tid, ra, xrow);
-
-  // the new tail: rows T .. T+rows of [old tail; x], then the kept rows;
-  // shared by the conv's blocks
-  {
-    const int nb = a.tiles_m * a.tiles_n * a.ksplit;
-    const int total = a.rows_pad * a.Cin;
-    for (int i = b * NT + tid; i < total; i += nb * NT) {
-      const int r = i / a.Cin, c = i - r * a.Cin;
-      a.new_tail[i] = r < a.rows ? full_at(a, a.T + r, c) : a.tail[i];
-    }
-  }
-
-  // partial products over this block's K-chunks, the next chunk's loads in
-  // flight while the current one is multiplied; thread (ty, tx) owns rows
-  // ty + 16 i and columns tx + 16 j of the tile
-  float acc[4][4];
+  // The raw loads of this thread's MI A elements of K-chunk `ch`, rows of
+  // [tail; x] at the taps: a tail value in ra[u][0], or the branch values
+  // of an x row (bit u of `xrow`).  Nothing waits on them before
+  // `a_value`, so all are in flight together.
+  static __device__ __forceinline__ void load_a(const Conv& a, int ch, int m0, int K,
+                                                int tid, float (&ra)[MI][MAX_CONV],
+                                                unsigned& xrow) {
+    const int k0 = ch * KC;
+    xrow = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int ch = c0; ch < c1; ++ch) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < MI; ++u) {
       const int i = tid + u * NT;
-      As[i % KC][i / KC] = a_value(a, ra[u], xrow >> u & 1);
-      Bs[i / TN][i % TN] = rb[u];
+      const int t = i / KC, kk = i % KC, k = k0 + kk, gt = m0 + t;
+      ra[u][0] = 0.f;
+      if (k < K && gt < a.T) {
+        const int j = k / a.Cin, c = k - j * a.Cin, r = gt + j * a.d;
+        if (r < a.rows) {
+          ra[u][0] = a.tail[(size_t)r * a.Cin + c];
+        } else {
+          xrow |= 1u << u;
+          load_x(a, (size_t)(r - a.rows) * a.Cin + c, ra[u]);
+        }
+      }
     }
-    __syncthreads();
-    if (ch + 1 < c1) {
-      load_a(a, ch + 1, m0, K, tid, ra, xrow);
-      load_b(a, ch + 1, n0, K, tid, rb);
+  }
+
+  // This thread's NJ B elements of K-chunk `ch`: weight rows.
+  static __device__ __forceinline__ void load_b(const Conv& a, int ch, int n0, int K,
+                                                int tid, float (&rb)[NJ]) {
+    const int k0 = ch * KC;
+#pragma unroll
+    for (int u = 0; u < NJ; ++u) {
+      const int i = tid + u * NT;
+      const int kk = i / TN, nn = i % TN, k = k0 + kk, n = n0 + nn;
+      float v = 0.f;
+      if (k < K && n < a.N) {
+        const float* row = (a.w2 != nullptr && k >= a.Cin)
+                               ? a.w2 + (size_t)(k - a.Cin) * a.N
+                               : a.w + (size_t)k * a.N;
+        v = __ldg(row + n);
+      }
+      rb[u] = v;
     }
+  }
+
+  // One block's work item of conv `a`: output tile `tile` (the level's tile
+  // tile0 + tile), K split q.  Inlined once per conv slot of the level, so
+  // that every field of `a` is a fixed offset in the launch's parameters.
+  static __device__ __forceinline__ void conv_block(const Conv& a, const Level& L, int b,
+                                                    int tile0, float (&As)[KC][AP],
+                                                    float (&Bs)[KC][TN], int& am_last) {
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const int q = b % a.ksplit, tile = b / a.ksplit;
+    const int m0 = (tile / a.tiles_n) * TM, n0 = (tile % a.tiles_n) * TN;
+    const int K = a.k * a.Cin;
+    const int nch = (K + KC - 1) / KC;
+    const int c0 = q * a.per, c1 = min(nch, c0 + a.per);
+
+    float ra[MI][MAX_CONV], rb[NJ];
+    unsigned xrow;
+    load_b(a, c0, n0, K, tid, rb);  // weights: no launch writes them
+    pdl_wait();
+    pdl_launch_dependents();
+    load_a(a, c0, m0, K, tid, ra, xrow);
+
+    // the new tail: rows T .. T+rows of [old tail; x], then the kept rows;
+    // shared by the conv's blocks
+    {
+      const int nb = a.tiles_m * a.tiles_n * a.ksplit;
+      const int total = a.rows_pad * a.Cin;
+      for (int i = b * NT + tid; i < total; i += nb * NT) {
+        const int r = i / a.Cin, c = i - r * a.Cin;
+        a.new_tail[i] = r < a.rows ? full_at(a, a.T + r, c) : a.tail[i];
+      }
+    }
+
+    // partial products over this block's K-chunks, the next chunk's loads
+    // in flight while the current one is multiplied; thread (ty, tx) owns
+    // rows ty + 16 i and columns tx + 16 j of the tile
+    float acc[MI][NJ];
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float av[4], bv[4];
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = As[kk][ty + 16 * i];
-        bv[i] = Bs[kk][tx + 16 * i];
+      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int ch = c0; ch < c1; ++ch) {
+#pragma unroll
+      for (int u = 0; u < MI; ++u) {
+        const int i = tid + u * NT;
+        As[i % KC][i / KC] = a_value(a, ra[u], xrow >> u & 1);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int u = 0; u < NJ; ++u) {
+        const int i = tid + u * NT;
+        Bs[i / TN][i % TN] = rb[u];
+      }
+      __syncthreads();
+      if (ch + 1 < c1) {
+        load_a(a, ch + 1, m0, K, tid, ra, xrow);
+        load_b(a, ch + 1, n0, K, tid, rb);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int kk = 0; kk < KC; ++kk) {
+        float av[MI], bv[NJ];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) av[i] = As[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
 
-  if (a.ksplit > 1) {
-    // K split: store the partial (this thread's 16 values contiguous, the
-    // rows past T left out), then the last block of the tile to arrive sums
-    // the splits in order, two splits' loads in flight at a time
-    float4* pb = reinterpret_cast<float4*>(L.part + (size_t)blockIdx.x * (TM * TN)) + tid * 4;
+    if (a.ksplit > 1) {
+      // K split: store the partial (element e of every thread at e * NT +
+      // tid, so that a warp's stores and loads are contiguous; the rows past
+      // T left out), then the last block of the tile to arrive sums the
+      // splits in order, two splits' loads in flight at a time
+      float* pb = L.part + (size_t)blockIdx.x * PART + tid;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (m0 + ty + 16 * i < a.T) pb[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) am_last = atomicAdd(&L.tickets[tile0 + tile], 1) == a.ksplit - 1;
-    __syncthreads();
-    if (!am_last) return;
-    const float4* p0 = reinterpret_cast<const float4*>(
-                           L.part + (size_t)(blockIdx.x - q) * (TM * TN)) + tid * 4;
+      for (int i = 0; i < MI; ++i)
+        if (m0 + ty + 16 * i < a.T)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < NJ; ++j) pb[(i * NJ + j) * NT] = acc[i][j];
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) am_last = atomicAdd(&L.tickets[tile0 + tile], 1) == a.ksplit - 1;
+      __syncthreads();
+      if (!am_last) return;
+      const float* p0 = L.part + (size_t)(blockIdx.x - q) * PART + tid;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int s = 0; s < a.ksplit; s += 2) {
-      const bool two = s + 1 < a.ksplit;
-      const float4* ps = p0 + (size_t)s * (TM * TN / 4);
-      float4 v[2][4];
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (m0 + ty + 16 * i < a.T) {
-          v[0][i] = __ldcg(ps + i);
-          if (two) v[1][i] = __ldcg(ps + TM * TN / 4 + i);
-        }
+        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+      for (int s = 0; s < a.ksplit; s += 2) {
+        const bool two = s + 1 < a.ksplit;
+        const float* ps = p0 + (size_t)s * PART;
+        float v[2][MI][NJ];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int i = 0; i < MI; ++i)
+          if (m0 + ty + 16 * i < a.T)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (m0 + ty + 16 * i < a.T && (h == 0 || two)) {
-            acc[i][0] += v[h][i].x;
-            acc[i][1] += v[h][i].y;
-            acc[i][2] += v[h][i].z;
-            acc[i][3] += v[h][i].w;
-          }
+            for (int j = 0; j < NJ; ++j) {
+              v[0][i][j] = __ldcg(ps + (i * NJ + j) * NT);
+              if (two) v[1][i][j] = __ldcg(ps + PART + (i * NJ + j) * NT);
+            }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+            if (m0 + ty + 16 * i < a.T && (h == 0 || two))
+#pragma unroll
+              for (int j = 0; j < NJ; ++j) acc[i][j] += v[h][i][j];
+      }
+      if (tid == 0) L.tickets[tile0 + tile] = 0;  // ready for the next launch
     }
-    if (tid == 0) L.tickets[tile0 + tile] = 0;  // ready for the next launch
-  }
 
-  // epilogue: bias, residual and tanh; every load first, so that none waits
-  // behind a store
-  float bias[4], res[4][4];
+    // epilogue: bias, residual and tanh; every load first, so that none
+    // waits behind a store
+    float bias[NJ], res[MI][NJ];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx + 16 * j;
-    bias[j] = n < a.N ? a.b[n % a.bias_mod] : 0.f;
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + tx + 16 * j;
+      bias[j] = n < a.N ? a.b[n % a.bias_mod] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+        res[i][j] =
+            a.resid != nullptr && t < a.T && n < a.N ? a.resid[(size_t)t * a.N + n] : 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+        if (t >= a.T || n >= a.N) continue;
+        float y = acc[i][j] + bias[j];
+        if (a.resid != nullptr) y += res[i][j];
+        if (a.tanh_out) y = tanhf(y);
+        a.out[(size_t)t * a.N + n] = y;
+      }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      res[i][j] = a.resid != nullptr && t < a.T && n < a.N ? a.resid[(size_t)t * a.N + n] : 0.f;
-    }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (t >= a.T || n >= a.N) continue;
-      float y = acc[i][j] + bias[j];
-      if (a.resid != nullptr) y += res[i][j];
-      if (a.tanh_out) y = tanhf(y);
-      a.out[(size_t)t * a.N + n] = y;
-    }
-}
+};
 
+template <int TM, int TN>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) level_kernel(const __grid_constant__ Level L) {
-  static_assert(TM * KC == 4 * NT && KC * TN == 4 * NT, "4 loads per thread per tile");
-  static_assert(TM * TN == 16 * NT, "16 outputs per thread");
-  __shared__ float As[KC][AP];
+  using Tl = Tile<TM, TN>;
+  static_assert(TM * KC % NT == 0 && KC * TN % NT == 0, "whole loads per thread");
+  __shared__ float As[KC][Tl::AP];
   __shared__ float Bs[KC][TN];
   __shared__ int am_last;
   // this block's work item: the level's convs in order, each its tiles,
@@ -339,12 +361,21 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) level_kernel(const __grid_cons
     const Conv& c = L.c[ci];
     const int nb = c.tiles_m * c.tiles_n * c.ksplit;
     if (ci == L.n_conv - 1 || b < nb) {
-      conv_block(c, L, b, tile0, As, Bs, am_last);
+      Tl::conv_block(c, L, b, tile0, As, Bs, am_last);
       return;
     }
     b -= nb;
     tile0 += c.tiles_m * c.tiles_n;
   }
+}
+
+cudaError_t launch_level(int tm, int tn, int blocks, cudaStream_t st, const Level& L) {
+  const dim3 g(blocks), t(NT);
+  if (tm == 16 && tn == 64) return launch_pdl(level_kernel<16, 64>, g, t, st, L);
+  if (tm == 32 && tn == 64) return launch_pdl(level_kernel<32, 64>, g, t, st, L);
+  if (tm == 64 && tn == 64) return launch_pdl(level_kernel<64, 64>, g, t, st, L);
+  if (tm == 64 && tn == 32) return launch_pdl(level_kernel<64, 32>, g, t, st, L);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -359,8 +390,8 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
   // the level records must fill `geo` exactly
   int p = HDR;
   for (int l = 0; l < n_level; ++l) {
-    if (p >= n_geo || geo[p] < 1 || geo[p] > MAX_CONV) return (int)cudaErrorInvalidValue;
-    p += 1 + geo[p] * NF;
+    if (p + LVL > n_geo || geo[p] < 1 || geo[p] > MAX_CONV) return (int)cudaErrorInvalidValue;
+    p += LVL + geo[p] * NF;
   }
   if (p != n_geo) return (int)cudaErrorInvalidValue;
 
@@ -377,7 +408,9 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
   p = HDR;
   for (int l = 0; l < n_level; ++l) {
     Level L = {};
-    L.n_conv = geo[p++];
+    L.n_conv = geo[p];
+    const int tm = geo[p + 1], tn = geo[p + 2];
+    p += LVL;
     L.part = part;
     L.tickets = tickets;
     int blocks = 0;
@@ -410,7 +443,7 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
       a.per = f[F_PER];
       blocks += a.tiles_m * a.tiles_n * a.ksplit;
     }
-    const cudaError_t e = launch_pdl(level_kernel, dim3(blocks), dim3(NT), st, L);
+    const cudaError_t e = launch_level(tm, tn, blocks, st, L);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

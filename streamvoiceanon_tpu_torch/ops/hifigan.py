@@ -26,26 +26,26 @@ r % 2 of dilation r // 2 of all three ResBlock branches side by side (each
 branch with its own first-conv buffer and running residual); conv_post.
 The branch mean moves into its consumer: the next upsample and conv_post
 compute ((D_0 + D_1) + D_2) / 3 as they load a row, then SiLU.  A level's
-blocks walk its work list (per conv, per 64 x 64 output tile, per K
-split), one implicit-GEMM conv tile each: 4 x 4 outputs per thread, full
-float32 on the CUDA cores (TF32 would miss the 1e-3 check), the dilated
-taps read straight from [tail; x], the next K-chunk's raw loads in flight
-while the current one is multiplied, bias, residual and tanh in the
-epilogue.  The upsample is the same conv with two taps: its row-major
-(T, s*C_out) result is the de-interleaved (T*s, C_out) output.  K splits
-aim at one wave of blocks a level (`TARGET_BLOCKS`), one split length for
-the whole level so that blocks do equal work; the last block of a tile to
-take its ticket sums the partials in split order and runs the epilogue, so
-no second launch is needed and the result does not depend on block timing.
-Levels are chained by programmatic dependent launch: a block loads its
-first weights, then waits for the level before it, which guards every
-activation, partial, ticket and tail that consecutive levels share.  The
-scratch (activation buffers, partials, tickets) and the ctypes `geo` array
-are kept across calls (`kept_scratch`).  Not yet done: the tile loop is
-bound by instruction issue (about 3 us a K-chunk at three blocks a SM),
-its 64-row tiles are mostly empty at the 4- and 32-row levels and its
-64-column tiles at the 16- and 32-channel stages, and nothing uses the
-tensor cores.
+blocks walk its work list (per conv, per output tile, per K split), one
+implicit-GEMM conv tile each, full float32 on the CUDA cores (TF32 would
+miss the 1e-3 check), the dilated taps read straight from [tail; x], the
+next K-chunk's raw loads in flight while the current one is multiplied,
+bias, residual and tanh in the epilogue.  Each level takes the tile of
+`TILES` with the least padding (`level_tile`): 16 or 32 rows where T is 4
+or 32, 32 columns where C_out is 16 or 32.  The upsample is the same conv
+with two taps: its row-major (T, s*C_out) result is the de-interleaved
+(T*s, C_out) output.  K splits aim at one wave of blocks a level
+(`TARGET_BLOCKS`), one split length for the whole level so that blocks do
+equal work; the last block of a tile to take its ticket sums the partials
+in split order and runs the epilogue, so no second launch is needed and
+the result does not depend on block timing.  Levels are chained by
+programmatic dependent launch: a block loads its first weights, then waits
+for the level before it, which guards every activation, partial, ticket
+and tail that consecutive levels share.  The scratch (activation buffers,
+partials, tickets) and the ctypes `geo` array are kept across calls
+(`kept_scratch`).  Not yet done: the tile loop is bound by instruction
+issue (a few us a K-chunk at three blocks a SM), the levels still pay a
+launch and a drain each, and nothing uses the tensor cores.
 
 The plain version repeats the TPU kernel's arithmetic: each conv
 accumulates in float32, adds the bias in float32 and rounds once; SiLU and
@@ -67,12 +67,13 @@ from streamvoiceanon_tpu_torch.ops.conv import ConvState, TransConvState
 from streamvoiceanon_tpu_torch.ops.decode_common import check_cuda
 
 # the kernel's tiles and launch plan (csrc/hifigan_head.cu)
-TM = TN = 64  # output rows and columns a block
+TILES = ((16, 64), (32, 64), (64, 64), (64, 32))  # (rows, columns) of a block's tile
+PART = 4096  # floats of split partial a block: the largest tile
 KC = 16  # K rows a chunk
 TARGET_BLOCKS = 396  # blocks a level: one wave, MIN_BLOCKS (3) a SM on 132 SMs
-MIN_CHUNKS = 2  # K-chunks a split at least
 MAX_CONV = 4  # convs a level: the ResBlock branches
 HDR = 5  # header ints of `geo`
+LVL = 3  # ints before a level's records: conv count, tile rows, tile columns
 # one conv's record in `geo`, in order (the `Field` enum of the CUDA source)
 CONV_FIELDS = ("x", "x_n", "silu", "T", "cin", "k", "d", "n", "w", "w_off", "w2", "b",
                "b_off", "bias_mod", "resid", "out", "tanh", "tail", "tail_off", "rows",
@@ -368,16 +369,25 @@ def level_plan(cfg: HiFiGANConfig, T0: int) -> List[List[Dict[str, int]]]:
     return levels
 
 
+def level_tile(level: List[Dict[str, int]]) -> Tuple[int, int]:
+    """The level's tile: the least padded output, then the largest tile
+    (`TILES` in order on a tie).  Every conv of a level has one shape."""
+    T, N = level[0]["T"], level[0]["n"]
+    assert all((c["T"], c["n"]) == (T, N) for c in level)
+    pad = lambda tm, tn: -(-T // tm) * tm * -(-N // tn) * tn
+    return min(TILES, key=lambda t: (pad(*t), -t[0] * t[1]))
+
+
 def _split(level: List[Dict[str, int]]) -> None:
     """Tiles and K splits of one level: one chunk count a split (`per`) for
-    the whole level, the least of MIN_CHUNKS or more that keeps the level at
-    about TARGET_BLOCKS blocks, so that every block does about the same
-    work."""
+    the whole level, the least that keeps the level within about
+    TARGET_BLOCKS blocks, so that every block does about the same work."""
+    tm, tn = level_tile(level)
     for c in level:
-        c["tiles_m"], c["tiles_n"] = -(-c["T"] // TM), -(-c["n"] // TN)
+        c["tiles_m"], c["tiles_n"] = -(-c["T"] // tm), -(-c["n"] // tn)
     nch = [-(-c["k"] * c["cin"] // KC) for c in level]
     work = sum(c["tiles_m"] * c["tiles_n"] * n for c, n in zip(level, nch))
-    per = max(MIN_CHUNKS, -(-work // TARGET_BLOCKS))
+    per = -(-work // TARGET_BLOCKS)
     for c, n in zip(level, nch):
         c["per"] = min(per, n)
         c["ksplit"] = -(-n // c["per"])
@@ -391,16 +401,17 @@ def level_blocks(level: List[Dict[str, int]]) -> int:
 def _geometry(cfg: HiFiGANConfig, T0: int) -> Tuple[int, ...]:
     """The `geo` int array of csrc/hifigan_head.cu: the header (levels,
     scratch buffers, their size, partial floats, tickets), then per level
-    its conv count and each conv's record (`CONV_FIELDS`)."""
+    its conv count and tile (LVL ints) and each conv's record
+    (`CONV_FIELDS`)."""
     levels = level_plan(cfg, T0)
     nb = len(cfg.resblock_kernel_sizes)
     convs = [c for level in levels for c in level]
     buf_elems = max(c["T"] * c["n"] for c in convs if c["out"] != BUF_WAV)
-    part_elems = max(level_blocks(level) for level in levels) * TM * TN
+    part_elems = max(level_blocks(level) for level in levels) * PART
     n_ticket = max(sum(c["tiles_m"] * c["tiles_n"] for c in level) for level in levels)
     geo = [len(levels), 2 + 2 * nb, buf_elems, part_elems, n_ticket]
     for level in levels:
-        geo.append(len(level))
+        geo += [len(level), *level_tile(level)]
         for c in level:
             geo += [c[f] for f in CONV_FIELDS]
     return tuple(geo)

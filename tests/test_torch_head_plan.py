@@ -67,15 +67,21 @@ def _params(cfg, seed):
 
 
 def _levels(geo):
-    """The level records of `geo`, read as the kernel's host code reads them."""
-    hdr, nf, p, levels = headops.HDR, len(headops.CONV_FIELDS), headops.HDR, []
+    """The levels of `geo` as the kernel's host code reads them: per level
+    its tile (rows, columns) and its conv records."""
+    nf, p, levels = len(headops.CONV_FIELDS), headops.HDR, []
     for _ in range(geo[0]):
-        n = geo[p]
-        levels.append([dict(zip(headops.CONV_FIELDS, geo[p + 1 + i * nf : p + 1 + (i + 1) * nf]))
-                       for i in range(n)])
-        p += 1 + n * nf
-    assert p == len(geo) and hdr == 5
+        n, tm, tn = geo[p : p + headops.LVL]
+        p += headops.LVL
+        levels.append(((tm, tn), [dict(zip(headops.CONV_FIELDS, geo[p + i * nf : p + (i + 1) * nf]))
+                                  for i in range(n)]))
+        p += n * nf
+    assert p == len(geo)
     return levels
+
+
+def _convs(geo):
+    return [lv for _, lv in _levels(geo)]
 
 
 def _silu(v):
@@ -85,14 +91,14 @@ def _silu(v):
 def _model(geo, w, st_in, x, wav_len, rng):
     """Run the plan's launches (float32): returns (st_out, wav)."""
     n_level, n_buf, be, part_elems, n_ticket = geo[: headops.HDR]
-    TM, TN, KC = headops.TM, headops.TN, headops.KC
+    KC, PART = headops.KC, headops.PART
     nan = float("nan")
     bufs = {headops.BUF_X: x.reshape(-1).clone(), headops.BUF_WAV: torch.full((wav_len,), nan)}
     for i in range(n_buf):
         bufs[headops.BUF_FIRST + i] = torch.full((be,), nan)
     st_out = [torch.full_like(t, nan) for t in st_in]
     tickets = np.zeros(n_ticket, dtype=np.int64)
-    for level in _levels(geo):
+    for (TM, TN), level in _levels(geo):
         snap = {k: v.clone() for k, v in bufs.items()}  # what earlier levels wrote
         part = torch.full((part_elems,), nan)  # stale partials
         written = {}
@@ -101,7 +107,7 @@ def _model(geo, w, st_in, x, wav_len, rng):
             tiles = c["tiles_m"] * c["tiles_n"]
             items += [(ci, tile0 + t, t, q) for t in range(tiles) for q in range(c["ksplit"])]
             tile0 += tiles
-        assert tile0 <= n_ticket and len(items) * TM * TN <= part_elems
+        assert tile0 <= n_ticket and len(items) * PART <= part_elems
         fulls = []
         for c in level:
             T, cin, rows = c["T"], c["cin"], c["rows"]
@@ -134,7 +140,7 @@ def _model(geo, w, st_in, x, wav_len, rng):
             k0, k1 = q * c["per"] * KC, min(K, (q + 1) * c["per"] * KC)
             acc = cols[m0:m1, k0:k1] @ W[k0:k1, n0:n1]
             if c["ksplit"] > 1:
-                pb = part[bi * TM * TN : (bi + 1) * TM * TN].view(TM, TN)
+                pb = part[bi * PART : bi * PART + TM * TN].view(TM, TN)
                 pb[: m1 - m0, : n1 - n0] = acc
                 tickets[tk] += 1
                 if tickets[tk] < c["ksplit"]:
@@ -142,7 +148,7 @@ def _model(geo, w, st_in, x, wav_len, rng):
                 first = bi - q
                 acc = torch.zeros_like(acc)
                 for s in range(c["ksplit"]):
-                    ps = part[(first + s) * TM * TN : (first + s + 1) * TM * TN].view(TM, TN)
+                    ps = part[(first + s) * PART : (first + s) * PART + TM * TN].view(TM, TN)
                     acc = acc + ps[: m1 - m0, : n1 - n0]
                 tickets[tk] = 0
             y = acc + w[c["b"]].reshape(-1)[c["b_off"] + torch.arange(n0, n1) % c["bias_mod"]]
@@ -192,7 +198,7 @@ def _model_step(pw, state, x, cfg, rng):
 
 def test_published_plan_has_37_levels_and_every_conv_once():
     cfg = C.HiFiGANConfig()
-    levels = _levels(headops._geometry(cfg, 4))
+    levels = _convs(headops._geometry(cfg, 4))
     assert len(levels) == 37 == headops.device_launches(cfg, 4)
     assert [len(lv) for lv in levels] == [1] + ([1] + [3] * 6) * 5 + [1]
     # a conv is known by its weights and by its tail slot: 97 of each, each once
@@ -211,15 +217,18 @@ def test_published_plan_has_37_levels_and_every_conv_once():
 def test_splits_cover_every_chunk_once_and_fill_the_card(name):
     cfg = C.HiFiGANConfig() if name == "published" else GEOMETRIES[name]
     geo = headops._geometry(cfg, 4)
-    for lv in _levels(geo):
-        per = {c["per"] for c in lv if c["ksplit"] > 1}
-        assert len(per) <= 1  # one split length a level: blocks of equal work
-        for c in lv:
-            nch = -(-c["k"] * c["cin"] // headops.KC)
-            assert (c["ksplit"] - 1) * c["per"] < nch <= c["ksplit"] * c["per"]
-            assert c["per"] >= min(nch, headops.MIN_CHUNKS)
+    for (tm, tn), lv in _levels(geo):
+        assert (tm, tn) in headops.TILES
+        assert all(c["tiles_m"] == -(-c["T"] // tm) and c["tiles_n"] == -(-c["n"] // tn)
+                   for c in lv)
+        nch = [-(-c["k"] * c["cin"] // headops.KC) for c in lv]
+        work = sum(c["tiles_m"] * c["tiles_n"] * n for c, n in zip(lv, nch))
+        per = -(-work // headops.TARGET_BLOCKS)  # one split length a level: equal work
+        for c, n in zip(lv, nch):
+            assert c["per"] == min(per, n)
+            assert (c["ksplit"] - 1) * c["per"] < n <= c["ksplit"] * c["per"]
         blocks = sum(c["tiles_m"] * c["tiles_n"] * c["ksplit"] for c in lv)
-        assert blocks * headops.TM * headops.TN <= geo[3]
+        assert blocks * headops.PART <= geo[3]
         if name == "published":  # about four blocks a SM or fewer
             assert blocks <= 1.1 * headops.TARGET_BLOCKS
 
@@ -239,7 +248,7 @@ def test_model_of_the_plan_matches_the_plain_head(name):
             assert torch.isfinite(a).all(), f"chunk {c}"
             torch.testing.assert_close(a, b, atol=TOL, rtol=TOL, msg=f"chunk {c}")
     if name == "split_heavy":
-        assert any(c["ksplit"] > 8 for lv in _levels(headops._geometry(cfg, 4)) for c in lv)
+        assert any(c["ksplit"] > 8 for lv in _convs(headops._geometry(cfg, 4)) for c in lv)
 
 
 def test_block_order_does_not_change_the_result():
@@ -257,9 +266,10 @@ def test_block_order_does_not_change_the_result():
 def test_plan_constants_match_the_cuda_source():
     src = (ROOT / "streamvoiceanon_tpu_torch" / "csrc" / "hifigan_head.cu").read_text()
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    assert int(const["TM"]) == headops.TM and int(const["TN"]) == headops.TN
-    assert int(const["KC"]) == headops.KC and int(const["MAX_CONV"]) == headops.MAX_CONV
-    assert int(const["HDR"]) == headops.HDR
+    for name in ("KC", "PART", "MAX_CONV", "HDR", "LVL"):
+        assert int(const[name]) == getattr(headops, name), name
+    launched = re.findall(r"launch_pdl\(level_kernel<(\d+), (\d+)>", src)
+    assert [(int(a), int(b)) for a, b in launched] == list(headops.TILES)
     enum = re.search(r"enum Field \{(.*?)\};", src, re.S).group(1)
     names = [n.strip() for n in enum.split(",")]
     assert names == ["F_" + f.upper() for f in headops.CONV_FIELDS] + ["NF"]
