@@ -570,7 +570,7 @@ def fast_breakdown(cfg, device, n: int = 30):
 def head_breakdown(hcfg, device, n: int = 30):
     """The HiFiGAN head (float32, T0 = 4): its CUDA-event time a call, the
     host's time to enqueue one, its time replayed from a CUDA graph, and
-    from torch.profiler over n calls its device launches a call by kernel
+    from torch.profiler over 10 calls its device launches a call by kernel
     (they must equal `device_launches`, the kernel's own plan), the device
     span of a call (first launch's start to last launch's end) and each
     launch's advance (its end less the previous launch's end).  Launches
@@ -581,7 +581,8 @@ def head_breakdown(hcfg, device, n: int = 30):
     from torch.profiler import ProfilerActivity, profile
 
     from streamvoiceanon_tpu_torch.ops.hifigan import (
-        device_launches, head_stream_step, init_packed_state)
+        device_launches, head_stream_step, head_stream_step_timeline, init_packed_state,
+        level_blocks, level_plan, level_tile)
 
     _, pw = head_params(hcfg, device)
     g = torch.Generator(device=device).manual_seed(17)
@@ -600,10 +601,25 @@ def head_breakdown(hcfg, device, n: int = 30):
         call()
     graph_ms = cuda_ms(graph.replay, n)
     del graph
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
+    # the profiler may drop device records (one run of this script saw 27.3
+    # of 37 launches a call): it never adds any, so take the first of up to
+    # three windows of m calls that holds every launch
+    want, m = device_launches(hcfg, 4), 10
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(m):
+                call()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if len(spans) > m * want:
+            raise AssertionError(f"head: {len(spans) / m:g} device launches a call, its plan "
+                                 f"has {want}")
+        if len(spans) == m * want:
+            break
+    else:
+        raise AssertionError(f"head: {len(spans) / m:g} device launches a call in the last of "
+                             f"three profiler windows, its plan has {want}")
     by_kernel = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -613,31 +629,40 @@ def head_breakdown(hcfg, device, n: int = 30):
             us = e.self_cuda_time_total
         name = re.sub(r"\(.*", "", e.key.replace("(anonymous namespace)::", ""))
         k = by_kernel.setdefault(name, [0.0, 0.0])
-        k[0] += e.count / n
-        k[1] += us / 1e3 / n
+        k[0] += e.count / m
+        k[1] += us / 1e3 / m
     launches = sum(c for c, _ in by_kernel.values())
-    want = device_launches(hcfg, 4)
-    if round(launches) != want:
-        raise AssertionError(f"head: {launches:g} device launches a call, its plan has {want}")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    span_ms, advance_us = None, None
-    if len(spans) == n * want:
-        calls = np.asarray(spans, dtype=np.float64).reshape(n, want, 2)
-        ends = np.maximum.accumulate(calls[:, :, 1], axis=1)
-        span_ms = float(np.mean(ends[:, -1] - calls[:, 0, 0])) / 1e3
-        advance_us = np.mean(np.diff(np.concatenate([calls[:, :1, 0], ends], axis=1), axis=1),
-                             axis=0).tolist()
+    calls = np.asarray(spans, dtype=np.float64).reshape(m, want, 2)
+    ends = np.maximum.accumulate(calls[:, :, 1], axis=1)
+    span_ms = float(np.mean(ends[:, -1] - calls[:, 0, 0])) / 1e3
+    advance_us = np.mean(np.diff(np.concatenate([calls[:, :1, 0], ends], axis=1), axis=1),
+                         axis=0).tolist()
     log(f"[2] head f32 T0 4: {call_ms:.4f} ms a call (CUDA events), {host_ms:.4f} ms to "
         f"enqueue one (host clock, 10 calls), {graph_ms:.4f} ms a call replayed from a CUDA "
-        f"graph; torch.profiler over {n} calls: {launches:g} device launches a call (plan "
-        f"{want}), device span a call "
-        + (f"{span_ms:.4f} ms" if span_ms is not None else "not available") + "; summed "
-        "launch spans by kernel: " + ", ".join(
+        f"graph; torch.profiler over {m} calls (window {window + 1} of at most 3): "
+        f"{launches:g} device launches a call (plan {want}), device span a call "
+        f"{span_ms:.4f} ms; summed launch spans by kernel: " + ", ".join(
             f"{k} {c:g} launches {ms:.4f} ms" for k, (c, ms) in by_kernel.items()))
     log("[2] head f32 T0 4, each launch's advance in call order, us (torch.profiler, mean "
-        f"over {n} calls): " + (" ".join(f"{u:.2f}" for u in advance_us) if advance_us else
-                                f"not available ({len(spans)} device records for {n} calls)"))
+        f"over {m} calls): " + " ".join(f"{u:.2f}" for u in advance_us))
+    # one call's blocks by the card's global timer: per level its tile and
+    # blocks, its advance (last exit less the level before's), and the
+    # medians over its blocks of start to K loop (the wait for the level
+    # before, then the tail), the K loop, and K loop to exit (the split
+    # partial and ticket, or the merge and the epilogue; also the largest)
+    t = head_stream_step_timeline(pw, st, x, hcfg).cpu().numpy().astype(np.int64)
+    parts, prev = [], None
+    for lvl, lv in enumerate(level_plan(hcfg, 4)):
+        b = t[lvl, : level_blocks(lv)] / 1e3
+        end = b[:, 3].max()
+        adv = end - (b[:, 0].min() if prev is None else prev)
+        prev = end
+        tm, tn = level_tile(lv)
+        parts.append(f"L{lvl} {tm}x{tn} {len(b)} blocks: {adv:.2f} | "
+                     f"{np.median(b[:, 1] - b[:, 0]):.2f} {np.median(b[:, 2] - b[:, 1]):.2f} "
+                     f"{np.median(b[:, 3] - b[:, 2]):.2f}/{(b[:, 3] - b[:, 2]).max():.2f}")
+    log("[2] head f32 T0 4, one call by the global timer, us (level tile blocks: advance | "
+        "median start to K loop, K loop, K loop to exit/largest): " + "; ".join(parts))
     return {"ms": call_ms, "host_ms": host_ms, "launches": launches, "span_ms": span_ms,
             "graph_ms": graph_ms, "by_kernel": by_kernel, "advance_us": advance_us}
 

@@ -61,6 +61,8 @@
 // `x` (T0, num_mels) and `wav` (T0 * prod(rates)) are device pointers;
 // `scratch` holds n_buf activation buffers of buf_elems floats, part_elems
 // floats of split partials, then n_ticket ints that are zero between calls.
+// `stamps` is null, or (levels, part_elems / PART, 4) device int64 that
+// take each block's global times (`stamp`).
 // Buffer ids in a record: 0 is x, 1 is wav, 2 + i scratch buffer i.
 // Returns the first CUDA error of a launch (0 when all were accepted).
 
@@ -115,7 +117,22 @@ struct Level {
   int n_conv;
   float* part;   // PART floats per block
   int* tickets;  // one per output tile of the level, zero between launches
+  unsigned long long* stamps;  // (blocks, 4) global ns of this level, or null
 };
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// with `stamps`: the card's global time where the block starts (point 0),
+// starts its K loop after the wait and the tail (1), ends it (2) and exits (3)
+__device__ __forceinline__ void stamp(const Level& L, int point) {
+  if (L.stamps == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) L.stamps[blockIdx.x * 4 + point] = global_ns();
+}
 
 __device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); }
 
@@ -147,10 +164,6 @@ __device__ __forceinline__ float full_at(const Conv& a, int r, int c) {
   return x_value(a, v);
 }
 
-__device__ __forceinline__ float a_value(const Conv& a, const float (&v)[MAX_CONV], bool x) {
-  return x ? x_value(a, v) : v[0];
-}
-
 template <int TM, int TN>
 struct Tile {
   static constexpr int MI = TM / 16, NJ = TN / 16;  // outputs a thread: rows, columns
@@ -159,8 +172,8 @@ struct Tile {
 
   // The raw loads of this thread's MI A elements of K-chunk `ch`, rows of
   // [tail; x] at the taps: a tail value in ra[u][0], or the branch values
-  // of an x row (bit u of `xrow`).  Nothing waits on them before
-  // `a_value`, so all are in flight together.
+  // of an x row (bit u of `xrow`).  Nothing waits on them before they
+  // are stored to shared memory, so all are in flight together.
   static __device__ __forceinline__ void load_a(const Conv& a, int ch, int m0, int K,
                                                 int tid, float (&ra)[MI][MAX_CONV],
                                                 unsigned& xrow) {
@@ -215,6 +228,7 @@ struct Tile {
     const int nch = (K + KC - 1) / KC;
     const int c0 = q * a.per, c1 = min(nch, c0 + a.per);
 
+    stamp(L, 0);
     float ra[MI][MAX_CONV], rb[NJ];
     unsigned xrow;
     load_b(a, c0, n0, K, tid, rb);  // weights: no launch writes them
@@ -233,6 +247,7 @@ struct Tile {
       }
     }
 
+    stamp(L, 1);
     // partial products over this block's K-chunks, the next chunk's loads
     // in flight while the current one is multiplied; thread (ty, tx) owns
     // rows ty + 16 i and columns tx + 16 j of the tile
@@ -245,7 +260,7 @@ struct Tile {
 #pragma unroll
       for (int u = 0; u < MI; ++u) {
         const int i = tid + u * NT;
-        As[i % KC][i / KC] = a_value(a, ra[u], xrow >> u & 1);
+        As[i % KC][i / KC] = xrow >> u & 1 ? x_value(a, ra[u]) : ra[u][0];
       }
 #pragma unroll
       for (int u = 0; u < NJ; ++u) {
@@ -272,6 +287,7 @@ struct Tile {
       __syncthreads();
     }
 
+    stamp(L, 2);
     if (a.ksplit > 1) {
       // K split: store the partial (element e of every thread at e * NT +
       // tid, so that a warp's stores and loads are contiguous; the rows past
@@ -287,7 +303,10 @@ struct Tile {
       __syncthreads();
       if (tid == 0) am_last = atomicAdd(&L.tickets[tile0 + tile], 1) == a.ksplit - 1;
       __syncthreads();
-      if (!am_last) return;
+      if (!am_last) {
+        stamp(L, 3);
+        return;
+      }
       const float* p0 = L.part + (size_t)(blockIdx.x - q) * PART + tid;
 #pragma unroll
       for (int i = 0; i < MI; ++i)
@@ -343,6 +362,7 @@ struct Tile {
         if (a.tanh_out) y = tanhf(y);
         a.out[(size_t)t * a.N + n] = y;
       }
+    stamp(L, 3);
   }
 };
 
@@ -383,7 +403,7 @@ cudaError_t launch_level(int tm, int tn, int blocks, cudaStream_t st, const Leve
 extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
                                      const void* const* st_in, void* const* st_out,
                                      const void* x, void* wav, int n_geo, void* scratch,
-                                     void* stream) {
+                                     void* stamps, void* stream) {
   if (n_geo < HDR) return (int)cudaErrorInvalidValue;
   const int n_level = geo[0], n_buf = geo[1];
   const long buf_elems = geo[2], part_elems = geo[3];
@@ -413,6 +433,8 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
     p += LVL;
     L.part = part;
     L.tickets = tickets;
+    if (stamps != nullptr)
+      L.stamps = (unsigned long long*)stamps + (size_t)l * (part_elems / PART) * 4;
     int blocks = 0;
     for (int i = 0; i < L.n_conv; ++i, p += NF) {
       const int* f = geo + p;

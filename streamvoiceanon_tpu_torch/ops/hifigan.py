@@ -454,6 +454,19 @@ def head_stream_step(pw: Dict, state: PackedHeadState, x: torch.Tensor,
     `head_stream_step_plain`; the new state is a new tensor tree."""
     if x.device.type == "cpu":
         return head_stream_step_plain(pw, state, x, cfg)
+    return _launch(pw, state, x, cfg, timeline=False)[:2]
+
+
+def head_stream_step_timeline(pw: Dict, state: PackedHeadState, x: torch.Tensor,
+                              cfg: HiFiGANConfig) -> torch.Tensor:
+    """One call of the kernel (arguments as `head_stream_step`, CUDA
+    tensors) that also records each block's global time in ns where it
+    starts, starts its K loop, ends it and exits: (levels, blocks, 4) int64,
+    zero past a level's blocks (`level_plan`)."""
+    return _launch(pw, state, x, cfg, timeline=True)[2]
+
+
+def _launch(pw, state, x, cfg, timeline):
     n_stage = len(cfg.upsample_rates)
     if len(pw["stages"]) != n_stage or state.pre.shape[0] != 1 or x.shape[0] != 1:
         raise ValueError("head_stream_step: batch 1 and one packed stage per rate")
@@ -477,18 +490,23 @@ def head_stream_step(pw: Dict, state: PackedHeadState, x: torch.Tensor,
     geo_c, n_geo, scratch, _ = _kept_plan(cfg, T0, dev)
     st_out = [torch.empty_like(t) for t in st_in]
     wav = torch.empty((1, T0 * math.prod(cfg.upsample_rates)), dtype=torch.float32, device=dev)
+    stamps = None
+    if timeline:
+        n_level, _, _, part_elems, _ = geo_c[:HDR]
+        stamps = torch.zeros((n_level, part_elems // PART, 4), dtype=torch.int64, device=dev)
     arr = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     w_c, in_c, out_c = arr(w), arr(st_in), arr(st_out)
     rc = _build.load("hifigan_head")(
         ctypes.addressof(geo_c), ctypes.addressof(w_c), ctypes.addressof(in_c),
         ctypes.addressof(out_c), x.data_ptr(), wav.data_ptr(), n_geo,
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"head_stream_step: CUDA launch failed with error {rc}")
     head_stream_step.launches += 1
     new = PackedHeadState(st_out[0], tuple(st_out[1 : 1 + 2 * n_stage : 2]),
                           tuple(st_out[2 : 2 + 2 * n_stage : 2]), st_out[-1])
-    return new, wav
+    return new, wav, stamps
 
 
 head_stream_step.launches = 0

@@ -113,6 +113,29 @@ def test_head_kernel_matches_plain(size):
     assert chip_smoke.compare_head(hcfg, "cuda", 6, True) <= chip_smoke.TOL
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["full", *sorted(TINY_HEADS)])
+def test_head_timeline_stamps_every_block_in_order(size):
+    """Each level's blocks start, loop and exit in order, and a level's last
+    exit comes before the next level's last exit."""
+    _need_card()
+    from streamvoiceanon_tpu_torch.ops.hifigan import (
+        head_stream_step_timeline, init_packed_state, level_blocks, level_plan)
+
+    hcfg = C.HiFiGANConfig() if size == "full" else TINY_HEADS[size]
+    _, pw = chip_smoke.head_params(hcfg, "cuda")
+    x = torch.randn((1, 4, hcfg.num_mels), device="cuda")
+    t = head_stream_step_timeline(pw, init_packed_state(hcfg, 1, device="cuda"), x, hcfg)
+    t = t.cpu().numpy()
+    ends = []
+    for lvl, lv in enumerate(level_plan(hcfg, 4)):
+        b = t[lvl, : level_blocks(lv)]
+        assert (b > 0).all() and (np.diff(b, axis=1) >= 0).all(), lvl
+        assert (t[lvl, level_blocks(lv):] == 0).all()
+        ends.append(b[:, 3].max())
+    assert (np.diff(ends) > 0).all()
+
+
 TINY_FRONT = C.replace(C.TokenizerConfig(), quantizer=C.BSQConfig(input_dim=32),
                        backbone=C.ConvNeXtConfig(depths=(2, 1, 3, 1), dims=(16, 24, 28, 32)))
 
