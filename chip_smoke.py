@@ -20,8 +20,9 @@ Phases, each reported on its own lines:
      outputs finite and unchanged;
    - the windowed-transformer ring step at counts 0, 1, 511, 512, 1000,
      3583 and 3584 (the last re-bases the ring first), float32: max abs
-     error <= 1e-3 over the output row and both whole rings; bf16 is
-     reported;
+     error <= 1e-3 over the output row and both whole rings; before count
+     512 the kernel's kept scratch and attention partials are filled with
+     NaN, which must not reach any output; bf16 is reported;
    - the fused HiFiGAN head over 8 consecutive chunks, each side carrying
      its own state, float32: max abs error <= 1e-3 over the waveform and
      every packed tail; before chunk 4 the kernel's kept scratch and split
@@ -46,8 +47,10 @@ Phases, each reported on its own lines:
    from a CUDA graph where the cooperative launch can be captured; for the
    HiFiGAN head (float32, T0 = 4) the same, its device launches a call
    (must equal the launch plan's levels), the device span of a call and
-   each launch's advance; then
-   kernel and plain times
+   each launch's advance; for the ring step (float32, count 1000) the
+   same, its device launches a call (must be one) and one launch's
+   phases split into work and barrier wait by the card's global timer;
+   then kernel and plain times
    (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
    time the card could take for the same work, and for the attention the
    time of `F.scaled_dot_product_attention` over the valid rows;
@@ -667,6 +670,118 @@ def head_breakdown(hcfg, device, n: int = 30):
             "graph_ms": graph_ms, "by_kernel": by_kernel, "advance_us": advance_us}
 
 
+def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30, expect=1):
+    """The ring step (float32, as on the main path) at `count`: its
+    CUDA-event time a call, the host's time to enqueue one, its time
+    replayed from a CUDA graph, and from torch.profiler its device launches
+    a call and their device time by kernel (with `expect`, the launches
+    must be that many: one for the persistent kernel); where the tree has
+    `wt_stream_step_timeline`, one call's phases by the card's global
+    timer (`ring_phase_split`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamvoiceanon_tpu_torch.ops import wt_stream as wts
+
+    dt = torch.float32
+    layers = wt_layers(wcfg, device, dt)
+    g = torch.Generator(device=device).manual_seed(17)
+    x, kr, vr = ring_inputs(wcfg, device, dt, count, g)
+    rkw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
+               norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
+    call = lambda: wts.wt_stream_step(layers, x, kr, vr, count, **rkw)
+    call_ms = cuda_ms(call, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 10
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        graph_ms = cuda_ms(graph.replay, n)
+        graph_note = f"{graph_ms:.4f} ms a call replayed from a CUDA graph"
+        del graph
+    except Exception as e:  # report, do not fail: capture is a measurement here
+        graph_ms = None
+        graph_note = f"no CUDA graph: the capture failed ({type(e).__name__}: {e})"
+    # the profiler may drop device records at the edge of its window, never
+    # adds any: take the first of up to three windows whose launch count is
+    # a whole number a call
+    m = 10
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(m):
+                call()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            name = re.sub(r"\(.*", "", e.key.replace("(anonymous namespace)::", ""))
+            k = by_kernel.setdefault(name, [0.0, 0.0])
+            k[0] += e.count / m
+            k[1] += us / 1e3 / m
+        launches = sum(c for c, _ in by_kernel.values())
+        if launches == round(launches) and (expect is None or launches == expect):
+            break
+    if expect is not None and launches != expect:
+        raise AssertionError(f"ring step: {launches:g} device launches a call, expected "
+                             f"{expect}: " + ", ".join(f"{k} {c:g}" for k, (c, _) in
+                                                       by_kernel.items()))
+    device_ms = sum(ms for _, ms in by_kernel.values())
+    log(f"[2] ring step f32 count {count}: {call_ms:.4f} ms a call (CUDA events), "
+        f"{host_ms:.4f} ms to enqueue one (host clock, 10 calls); {graph_note}; "
+        f"torch.profiler over {m} calls (window {window + 1} of at most 3): {launches:g} "
+        f"device launches a call, {device_ms:.4f} ms of device time a call; by kernel: "
+        + ", ".join(f"{k} {c:g} launches {ms:.4f} ms" for k, (c, ms) in by_kernel.items()))
+    out = {"ms": call_ms, "host_ms": host_ms, "graph_ms": graph_ms, "launches": launches,
+           "device_ms": device_ms, "by_kernel": by_kernel}
+    if hasattr(wts, "wt_stream_step_timeline"):
+        out["phases"] = ring_phase_split(
+            wts.wt_stream_step_timeline(layers, x, kr, vr, count, **rkw))
+        ph = out["phases"]
+        log(f"[2] ring step f32 count {count}, one launch's phases by the card's global "
+            "timer, mean over layers, us (work: first entry to last exit; barrier: last "
+            "exit to the next phase's last entry; busy: median block's entry to exit): "
+            + ", ".join(f"{k} work {v['work_us']:.2f} + barrier {v['wait_us']:.2f} "
+                        f"(busy {v['busy_us']:.2f})" for k, v in ph["kinds"].items())
+            + f"; all {ph['total_us']:.1f} us, of it in barriers {ph['wait_us']:.1f} us")
+    return out
+
+
+def ring_phase_split(stamps):
+    """Mean times of each phase kind (A..E) of the ring step from the
+    kernel's stamps (phases, blocks, 2: entry, exit): work from the first
+    block's entry to the last block's exit, the barrier after it from that
+    exit to the last block's entry into the next phase, and the median
+    block's own entry-to-exit time."""
+    t = stamps.cpu().numpy().astype(np.int64)
+    entry, exit_ = t[:, :, 0], t[:, :, 1]
+    work = (exit_.max(1) - entry.min(1)) / 1e3
+    wait = np.append((entry[1:].max(1) - exit_[:-1].max(1)) / 1e3, 0.0)
+    busy = np.median(exit_ - entry, axis=1) / 1e3
+    kinds = {}
+    for i in range(len(t)):
+        k = kinds.setdefault("ABCDE"[i % 5], {"n": 0, "work_us": 0.0, "wait_us": 0.0,
+                                              "busy_us": 0.0})
+        k["n"] += 1
+        k["work_us"] += float(work[i])
+        k["wait_us"] += float(wait[i])
+        k["busy_us"] += float(busy[i])
+    for k in kinds.values():
+        for key in ("work_us", "wait_us", "busy_us"):
+            k[key] /= k["n"]
+    return {"kinds": kinds, "total_us": float(exit_[-1].max() - entry[0].min()) / 1e3,
+            "wait_us": float(wait.sum())}
+
+
 def phase_split(stamps, L: int):
     """Mean time of each kind of interval of the fast loop from the kernel's
     barrier stamps (points, blocks, 2): work from the first block to leave
@@ -740,19 +855,28 @@ def ring_inputs(wcfg, device, dtype, count: int, g):
 
 def compare_ring(wcfg, device, dtype, counts, check: bool):
     """The ring step against its plain version at each count (the ring
-    re-based first where due).  Returns the max abs error over the output
-    row and both whole rings (the fresh rows included)."""
+    re-based first where due).  Before the middle count the kernel's kept
+    scratch (qkv, gate and the attention items' partials) is filled with
+    NaN, so that a phase that reads what its call did not write shows up.
+    Returns the max abs error over the output row and both whole rings (the
+    fresh rows included)."""
     import torch
 
-    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step, wt_stream_step_plain
+    from streamvoiceanon_tpu_torch.ops.wt_stream import (
+        kept_scratch, wt_stream_step, wt_stream_step_plain)
 
     layers = wt_layers(wcfg, device, dtype)
     g = torch.Generator(device=device).manual_seed(9)
     kw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
               norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
     worst = 0.0
-    for count in counts:
+    for i, count in enumerate(counts):
         x, kr, vr = ring_inputs(wcfg, device, dtype, count, g)
+        if i == len(counts) // 2 and torch.device(device).type == "cuda":
+            for t in kept_scratch(wcfg.n_layer, wcfg.dim, wcfg.n_head, wcfg.head_dim,
+                                  wcfg.intermediate_size, wcfg.window_size, dtype,
+                                  device).values():
+                t.fill_(float("nan"))
         ko = wt_stream_step(layers, x, kr.clone(), vr.clone(), count, **kw)
         po = wt_stream_step_plain(layers, x, kr.clone(), vr.clone(), count, **kw)
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ko, po))
@@ -1386,8 +1510,9 @@ def main() -> int:
 
 
 def breakdown_main() -> int:
-    """`python3 chip_smoke.py --breakdown`: phase 2's slow-step, fast-loop
-    and head breakdowns alone (main runs them in a child process)."""
+    """`python3 chip_smoke.py --breakdown`: phase 2's slow-step, fast-loop,
+    head and ring-step breakdowns alone (main runs them in a child
+    process)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1401,6 +1526,7 @@ def breakdown_main() -> int:
     slow_breakdown(d, "cuda", SLOW_TIME_POS)
     fast_breakdown(d, "cuda")
     head_breakdown(cfg.vocoder.head, "cuda")
+    ring_breakdown(cfg.tokenizer.transformer, "cuda")
     return 0
 
 

@@ -1,9 +1,11 @@
 // Device kernels shared by the dual-AR slow step (slow_decode.cu, which uses
-// the matvec and the sampler with its own split-row attention), the
-// windowed-transformer ring step (wt_stream.cu, which uses the matvec and its
-// own ring attention) and the ConvNeXt encoder front (convnext_enc.cu, which
-// uses the matvec).  The fast codebook loop (fast_decode.cu) is one
-// persistent kernel of its own and takes only the helpers below.
+// the matvec and the sampler with its own split-row attention) and the
+// ConvNeXt encoder front (convnext_enc.cu, which uses the matvec).  The fast
+// codebook loop (fast_decode.cu) and the windowed-transformer ring step
+// (wt_stream.cu) are persistent kernels of their own; they share the pieces
+// of the "persistent kernels" section below: the grid barrier, reads
+// through L2 of what other blocks wrote, the column-owner matvec over packed
+// weights, and the mbarrier and bulk-copy (TMA) helpers.
 //
 // Two kernels, launched in sequence by the host entry points:
 //
@@ -331,7 +333,211 @@ inline cudaError_t launch_matvec(const W* x, const W* norm_w, float eps, const W
   return cudaGetLastError();
 }
 
-constexpr int AT_MAXD = 4;  // head dims a lane in the ring step's attention: <= 128
+// ---------------------------------------------------------------------------
+// persistent kernels (fast_decode.cu, wt_stream.cu): one cooperative launch,
+// one block of PK_THREADS per SM, phases separated by grid barriers; a block
+// owns whole output columns (16-byte units of packed weights) of each phase
+// ---------------------------------------------------------------------------
+
+constexpr int PK_THREADS = 512;
+constexpr int PK_WARPS = PK_THREADS / 32;
+constexpr int PK_DEPTH = 8;  // 16-byte weight loads in flight a lane
+constexpr int PK_ROW = 5;    // row values a thread: K <= 2560
+
+// a value another block wrote during this launch: through L2, not L1
+__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_cg(const bf16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// The K <= PK_ROW * PK_THREADS values of a row, value tid + r * PK_THREADS
+// in v[r] (0 past K), every load issued before the first is used (a loop
+// whose trips the compiler cannot count waits out each load in turn).
+// Read through L2 when `shared_row` (written by other blocks).
+template <typename W>
+__device__ __forceinline__ void load_row(const W* row, bool shared_row, int K,
+                                         float (&v)[PK_ROW]) {
+#pragma unroll
+  for (int r = 0; r < PK_ROW; ++r) {
+    const int k = threadIdx.x + r * PK_THREADS;
+    v[r] = k < K ? (shared_row ? ld_cg(row + k) : to_f<W>(__ldg(row + k))) : 0.f;
+  }
+}
+
+// xs <- RMSNorm(row) * norm_w, rounded as the TPU kernel rounds (the input
+// rounded to W after the scale, then the product rounded to W).
+template <typename W>
+__device__ void norm_row(const W* row, bool shared_row, const W* norm_w, int K, float eps,
+                         float* xs, float* scal) {
+  const int tid = threadIdx.x;
+  float v[PK_ROW], nw[PK_ROW];
+  load_row<W>(row, shared_row, K, v);
+  load_row<W>(norm_w, false, K, nw);
+  float ss = 0.f;
+#pragma unroll
+  for (int r = 0; r < PK_ROW; ++r) ss += v[r] * v[r];
+  ss = warp_sum(ss);
+  if ((tid & 31) == 0) scal[tid >> 5] = ss;  // free: the last reader passed a barrier
+  __syncthreads();
+  ss = 0.f;
+#pragma unroll
+  for (int w = 0; w < PK_WARPS; ++w) ss += scal[w];
+  const float inv = rsqrtf(ss / (float)K + eps);
+#pragma unroll
+  for (int r = 0; r < PK_ROW; ++r) {
+    const int k = tid + r * PK_THREADS;
+    if (k < K) xs[k] = rnd<W>(rnd<W>(v[r] * inv) * nw[r]);
+  }
+  __syncthreads();
+}
+
+// Sums each of the VEC values v[] over the warp: the values are halved at
+// each exchange (the lane whose offset bit is set keeps the upper half), so
+// a lane ends with the total of value (lane / (32 / VEC)) % VEC after
+// log2(VEC) + log2(32 / VEC) exchanges, not VEC * 5.
+template <int VEC>
+__device__ __forceinline__ float warp_sum_vec(float* v, int lane) {
+#pragma unroll
+  for (int n = VEC / 2, o = 16; n >= 1; n /= 2, o /= 2) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = up ? v[i] : v[i + n];
+      const float keep = up ? v[i + n] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float r = v[0];
+#pragma unroll
+  for (int o = 16 / VEC; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+  return r;
+}
+
+// How a block's warps split a phase's tasks, (unit, matrix) pairs unit-major
+// from task t0: each of the first min(16, tasks - t0) tasks gets
+// PK_WARPS / that many warps, whose lanes walk the unit's K rows at a stride
+// of 32 x warps a task.
+struct TaskMap {
+  int nt, wpt, ti, wi, stride;
+  __device__ TaskMap(int ntask, int t0, int warp) {
+    nt = min(PK_WARPS, ntask - t0);
+    wpt = PK_WARPS / max(nt, 1);
+    ti = warp / wpt;
+    wi = warp % wpt;
+    stride = wpt * 32;
+  }
+};
+
+// The block's columns of xs (K floats in shared memory) times a phase's
+// tasks: `col(task)` is the task's K x 16-byte weight slice, in shared
+// memory (resident, or in the ring) or in global memory, VEC columns of
+// one matrix.  Every column is summed over the whole K in a fixed order,
+// PK_DEPTH 16-byte loads in flight a lane.  Then `epi(unit, v, sum)` runs
+// once per column (units counted from the phase's first), on thread
+// unit * VEC + v for the first 16 tasks, `sum(m, v')` being column v' of the
+// unit's matrix m summed over the task's warps in warp order.
+template <typename W, int NMAT, typename Col, typename Epi>
+__device__ void matvec_tasks(const float* __restrict__ xs, int K, int nu, float* red, Col col,
+                             Epi epi) {
+  constexpr int VEC = Vec<W>::N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntask = nu * NMAT;
+  for (int t0 = 0; t0 < ntask; t0 += PK_WARPS) {
+    const TaskMap tm(ntask, t0, warp);
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+    if (tm.ti < tm.nt) {
+      const uint4* w = col(t0 + tm.ti);
+      for (int k0 = tm.wi * 32 + lane; k0 < K; k0 += PK_DEPTH * tm.stride) {
+        uint4 raw[PK_DEPTH];
+#pragma unroll
+        for (int j = 0; j < PK_DEPTH; ++j) {
+          const int k = k0 + j * tm.stride;
+          raw[j] = k < K ? w[k] : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < PK_DEPTH; ++j) {
+          const int k = k0 + j * tm.stride;
+          if (k < K) {
+            float wv[VEC];
+            unpack_vec<W>(raw[j], wv);
+            const float xv = xs[k];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[v] = fmaf(xv, wv[v], acc[v]);
+          }
+        }
+      }
+    }
+    const float tot = warp_sum_vec<VEC>(acc, lane);
+    if (lane % (32 / VEC) == 0) red[warp * VEC + (lane / (32 / VEC)) % VEC] = tot;
+    __syncthreads();
+    // the sum of column v' of task t over its warps, in warp order
+    auto sum = [&](int t, int v) {
+      float x = 0.f;
+      for (int w = 0; w < tm.wpt; ++w) x += red[(t * tm.wpt + w) * VEC + v];
+      return x;
+    };
+    for (int i = tid; i < tm.nt / NMAT * VEC; i += PK_THREADS) {
+      const int ul = i / VEC;
+      epi(t0 / NMAT + ul, i % VEC, [&](int m, int v) { return sum(ul * NMAT + m, v); });
+    }
+    __syncthreads();
+  }
+}
+
+// mbarriers and bulk copies (TMA) into shared memory
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(1));
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_load(const void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\tLAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\tbra LAB_WAIT;\n\tDONE:\n\t}" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A grid-wide barrier on a 64-bit arrival count that only grows: each
+// block's thread 0 adds one with release semantics and waits, reading with
+// acquire semantics, until the count reaches the next multiple of the grid
+// (so nothing is reset, and a launch leaves it at a multiple).
+__device__ __forceinline__ void count_barrier(unsigned long long* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long old, now;
+    asm volatile("atom.release.gpu.global.add.u64 %0, [%1], %2;"
+                 : "=l"(old) : "l"(count), "l"(1ull) : "memory");
+    const unsigned long long target = (old / gridDim.x + 1) * gridDim.x;
+    do {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(now) : "l"(count) : "memory");
+    } while (now < target);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // ---------------------------------------------------------------------------
 // sampling

@@ -1,5 +1,7 @@
-"""Plain PyTorch pieces shared by the two decode kernels' plain versions, and
-the scratch sizes their CUDA launches need.
+"""Plain PyTorch pieces shared by the two decode kernels' plain versions, the
+scratch sizes their CUDA launches need, and the column plan, packed weights
+and grid-barrier counts of the two persistent kernels (the fast loop,
+csrc/fast_decode.cu, and the ring step, csrc/wt_stream.cu).
 
 The arithmetic follows the TPU kernels the two CUDA kernels replace
 (JAX package, ops/pallas_slow_decode.py and ops/pallas_fast_decode.py):
@@ -10,8 +12,9 @@ the sampler is the exact full-vocabulary nucleus filter found by bisection.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from streamvoiceanon_tpu_torch.ops.rope import precompute_freqs_cis
@@ -101,3 +104,75 @@ def check_cuda(name: str, tensors: dict, dtype=None):
         if dtype is not None and t.dtype != dtype:
             raise ValueError(f"{name}: {key} is {t.dtype}, expected {dtype}")
     return dev
+
+
+# ---------------------------------------------------------------------------
+# the persistent kernels: column plan, packed weights, grid-barrier counts
+# ---------------------------------------------------------------------------
+
+MAX_SMEM = 232448  # shared memory a block may use on Hopper (227 KB)
+COOPERATIVE_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
+
+
+def unit_cols(dtype) -> int:
+    """Output columns of one plan unit: 16 bytes of a weight row."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def column_plan(units: Sequence[int], unit_bytes: Sequence[int], n_blocks: int) -> np.ndarray:
+    """(n_blocks, phases, 2) int32: per block and phase, the first unit it
+    owns and how many, a contiguous run.
+
+    Every block gets floor(units / n_blocks) units of a phase; the rest go
+    one each to the blocks with the fewest weight bytes so far, phases with
+    the largest units first (lowest block index on ties), so that a block's
+    bytes stay near the mean and no block has more than ceil(units /
+    n_blocks) units of a phase."""
+    load = np.zeros(n_blocks, dtype=np.int64)
+    counts = np.zeros((n_blocks, len(units)), dtype=np.int64)
+    for p in sorted(range(len(units)), key=lambda p: -unit_bytes[p]):
+        base, extra = divmod(units[p], n_blocks)
+        counts[:, p] = base
+        load += base * unit_bytes[p]
+        least = np.lexsort((np.arange(n_blocks), load))[:extra]
+        counts[least, p] += 1
+        load[least] += unit_bytes[p]
+    first = np.cumsum(counts, axis=0) - counts
+    return np.stack([first, counts], axis=-1).astype(np.int32)
+
+
+_PACKED: Dict[Tuple, Tuple[torch.Tensor, int, torch.Tensor]] = {}
+_PACKED_MAX = 48  # eight weight sets of six matrices
+
+
+def packed(w: torch.Tensor) -> torch.Tensor:
+    """w (..., K, N) as (..., N / u, K, u), u = unit_cols: each unit's
+    column slice contiguous over the whole K.  Kept per source tensor and
+    its version counter (an in-place update packs again); the entry holds
+    the source, so its address is not reused while the entry lives."""
+    key = (w.data_ptr(), w.dtype, tuple(w.shape), w.device)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0] is w and hit[1] == w._version:
+        return hit[2]
+    u = unit_cols(w.dtype)
+    *lead, K, N = w.shape
+    p = w.reshape(*lead, K, N // u, u).transpose(-3, -2).contiguous()
+    _PACKED.pop(key, None)
+    while len(_PACKED) >= _PACKED_MAX:
+        _PACKED.pop(next(iter(_PACKED)))
+    _PACKED[key] = (w, w._version, p)
+    return p
+
+
+_BAR_COUNTS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def barrier_count(kernel: str, dev: torch.device) -> torch.Tensor:
+    """The grid barrier's arrival count of one persistent kernel on `dev`:
+    zeroed once, and left at a multiple of the grid by every launch, so it
+    is shared by all launches of that kernel (each kernel has its own, so
+    two kernels on two streams never share one)."""
+    key = (kernel, dev)
+    if key not in _BAR_COUNTS:
+        _BAR_COUNTS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _BAR_COUNTS[key]

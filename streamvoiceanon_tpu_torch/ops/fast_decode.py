@@ -44,7 +44,8 @@ resident, about 40 % of its weights (168 KB a block in bf16), loaded once by
 bulk copies (TMA) in step 0; the rest, about 40 MB a step, which L2 can
 hold, is streamed into a 36 KB ring by bulk copies issued before the
 barrier that precedes each phase.  The barrier is a release/acquire arrival
-count (`_bar_count`), and the sampler runs across the block.
+count (`barrier_count`, ops/decode_common.py, with the column plan and the
+packed layout), and the sampler runs across the block.
 
 The plain version below repeats the TPU kernel's arithmetic and is the CPU
 path and the kernel's oracle.
@@ -60,7 +61,8 @@ import torch
 
 from streamvoiceanon_tpu_torch.ops import _build
 from streamvoiceanon_tpu_torch.ops.decode_common import (
-    DTYPE_CODE, check_cuda, dot, freqs_table, nucleus_sample, rope_rows)
+    COOPERATIVE_TOO_LARGE, DTYPE_CODE, MAX_SMEM, barrier_count, check_cuda, column_plan, dot,
+    freqs_table, nucleus_sample, packed, rope_rows, unit_cols)
 from streamvoiceanon_tpu_torch.ops.norm import rms_norm
 
 # the kernel's phases, in the order of the plan's columns (csrc/fast_decode.cu)
@@ -70,7 +72,6 @@ MAX_VOCAB = 1024  # FD_VOC values a thread of the sampler
 MAX_ROW = 2560  # FD_ROW values a thread of a row (dim, inter, the audio embedding)
 MAX_ROUNDS = 4  # FD_MAXR: the attention's rounds of 32 / (head_dim / unit_cols) slots
 MAX_LAYERS = 8  # FD_MAXL: one mbarrier a layer for the resident weights
-MAX_SMEM = 232448  # shared memory a block may use on Hopper (227 KB)
 RING_BYTES = 36864  # FD_RING: one phase's streamed weights (3 x 12 KB or 1 x 36 KB)
 # the kernel's static shared memory: red, scal, part, bv, bi, the
 # resident offsets and the mbarriers
@@ -124,11 +125,6 @@ def fast_decode_plain(
     return torch.cat(codes).reshape(1, nq), aemb
 
 
-def unit_cols(dtype) -> int:
-    """Output columns of one plan unit: 16 bytes of a weight row."""
-    return 16 // torch.empty((), dtype=dtype).element_size()
-
-
 def phase_units(dim: int, inter: int, V: int, dtype) -> Tuple[int, ...]:
     """Units of each phase of PHASES (w13: one unit is a w1 and a w3 slice)."""
     u = unit_cols(dtype)
@@ -153,23 +149,8 @@ def work_plan(L: int, dim: int, inter: int, V: int, n_blocks: int, dtype) -> np.
     """(n_blocks, 5, 2) int32: per block and phase of PHASES, the first unit
     it owns and how many, a contiguous run.  The same for every layer.
 
-    Every block gets floor(units / n_blocks) units of a phase; the rest go
-    one each to the blocks with the fewest weight bytes so far, phases with
-    the largest units first (lowest block index on ties), so that a block's
-    bytes over a step stay near the mean."""
-    units = phase_units(dim, inter, V, dtype)
-    ub = unit_bytes(L, dim, inter)
-    load = np.zeros(n_blocks, dtype=np.int64)
-    counts = np.zeros((n_blocks, len(PHASES)), dtype=np.int64)
-    for p in sorted(range(len(PHASES)), key=lambda p: -ub[p]):
-        base, extra = divmod(units[p], n_blocks)
-        counts[:, p] = base
-        load += base * ub[p]
-        least = np.lexsort((np.arange(n_blocks), load))[:extra]
-        counts[least, p] += 1
-        load[least] += ub[p]
-    first = np.cumsum(counts, axis=0) - counts
-    return np.stack([first, counts], axis=-1).astype(np.int32)
+    The rule is `column_plan`'s (ops/decode_common.py)."""
+    return column_plan(phase_units(dim, inter, V, dtype), unit_bytes(L, dim, inter), n_blocks)
 
 
 def slice_shapes(L: int, dim: int, inter: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -212,29 +193,6 @@ def resident_plan(L: int, dim: int, inter: int, V: int, n_blocks: int, dtype, nq
 def resident_bytes(res: np.ndarray, L: int, dim: int, inter: int) -> np.ndarray:
     """Each block's resident weight bytes."""
     return res @ np.asarray([tb for _, _, tb in slice_shapes(L, dim, inter)])
-
-
-_PACKED: Dict[Tuple, Tuple[torch.Tensor, int, torch.Tensor]] = {}
-_PACKED_MAX = 24  # four weight sets of six matrices
-
-
-def packed(w: torch.Tensor) -> torch.Tensor:
-    """w (..., K, N) as (..., N / u, K, u), u = unit_cols: each unit's
-    column slice contiguous over the whole K.  Kept per source tensor and
-    its version counter (an in-place update packs again); the entry holds
-    the source, so its address is not reused while the entry lives."""
-    key = (w.data_ptr(), w.dtype, tuple(w.shape), w.device)
-    hit = _PACKED.get(key)
-    if hit is not None and hit[0] is w and hit[1] == w._version:
-        return hit[2]
-    u = unit_cols(w.dtype)
-    *lead, K, N = w.shape
-    p = w.reshape(*lead, K, N // u, u).transpose(-3, -2).contiguous()
-    _PACKED.pop(key, None)
-    while len(_PACKED) >= _PACKED_MAX:
-        _PACKED.pop(next(iter(_PACKED)))
-    _PACKED[key] = (w, w._version, p)
-    return p
 
 
 @functools.lru_cache(maxsize=16)
@@ -343,7 +301,7 @@ def _launch(fast_layers, fast_norm, fast_output, fast_embeddings, codebook_embed
         ptr(w["attention_norm"]), ptr(w["ffn_norm"]), ptr(fast_norm), ptr(mats[5]),
         ptr(fast_embeddings), ptr(codebook_embeddings), ptr(freqs), ptr(plan), ptr(codes),
         ptr(aemb), ptr(kc), ptr(vc), ptr(q), ptr(gate), ptr(logits), ptr(stamps),
-        ptr(_bar_count(dev)), n_blocks, res_bytes,
+        ptr(barrier_count("fast_decode", dev)), n_blocks, res_bytes,
         L, nq, dim, n_head, head_dim, inter, V, mdim, float(norm_eps),
         float(1.0 / np.sqrt(head_dim)), float(max(temperature, 1e-5)), float(top_p),
         int(bool(greedy)), torch.cuda.current_stream(dev).cuda_stream)
@@ -355,18 +313,6 @@ def _launch(fast_layers, fast_norm, fast_output, fast_embeddings, codebook_embed
     fast_decode.launches += 1
     fast_decode.last_logits = logits
     return codes.reshape(1, nq), aemb.reshape(1, mdim), stamps
-
-
-COOPERATIVE_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
-_BAR_COUNTS: Dict[torch.device, torch.Tensor] = {}
-
-
-def _bar_count(dev: torch.device) -> torch.Tensor:
-    """The grid barrier's arrival count on `dev`: zeroed once, and left at a
-    multiple of the grid by every launch, so it is shared by all of them."""
-    if dev not in _BAR_COUNTS:
-        _BAR_COUNTS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
-    return _BAR_COUNTS[dev]
 
 
 fast_decode.launches = 0

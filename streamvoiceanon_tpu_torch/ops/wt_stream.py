@@ -22,19 +22,50 @@ The ring is flat, (L, B, W, n_head*head_dim).  Batch 1 runs the kernel;
 write the fresh K/V rows into the ring IN PLACE at the current slot and
 return it: the stream state owns its ring.
 
-What bounds the kernel on the card: bytes.  At float32 (the main path) one
-step reads 109 MB of layer weights (8 x 13.6 MB) and up to 17 MB of ring
-(8 layers x 2 x 512 x 512 x 4 B), against 3.35 TB/s; one row per weight
-makes its operations negligible.
+What bounds the kernel on the card: bytes and latency.  At float32 (the
+main path) one step reads 109 MB of layer weights (8 x 13.6 MB, above the
+50 MB L2) and up to 17 MB of ring (8 layers x 2 x 512 x 512 x 4 B),
+37.6 us at 3.35 TB/s; one row per weight makes its operations negligible.
+The layers' 40 matrix-vector products and attentions depend on each other
+in sequence, and each moves 1 to 6.3 MB, so a design of one launch each
+pays a launch and a drain per step of work.
 
-What this first design does about it (csrc/wt_stream.cu on
-csrc/decode_common.cuh): per layer, four split-K matrix-vector launches
-(every weight byte read once, hundreds of blocks in flight, RMSNorm fused
-into the QKV and SwiGLU launches, the LayerScale residual fused into the wo
-and w2 epilogues) and one ring-attention launch, one block per head, which
-reads only the valid slots and writes the fresh rows in place.  Not yet
-done: the 40 launches in sequence pay launch latency comparable to the
-weight stream, and 8 attention blocks leave most SMs idle.
+The design (csrc/wt_stream.cu): one cooperative launch a token, one block
+per SM (`wt_stream_step.launches` counts one a call).  The TPU kernel's
+program order becomes grid barriers, five phases a layer and 5 L - 1
+barriers a call (39 at 8 layers):
+
+    A  RMSNorm(h), qkv; q and k roped and rounded; fresh k, v into the ring
+    B  attention items (head, split of the old slots), dealt round robin
+    C  merge of B's items in split order plus the fresh row; wo + residual
+    D  RMSNorm(h), w1 and w3 with the SwiGLU gate
+    E  w2 + residual
+
+Each block owns fixed runs of 16-byte column units of every matvec phase
+(`work_plan`, the rule of `column_plan` in ops/decode_common.py) and sums
+each column over the whole K in a fixed order, over weights packed once
+per tensor (`packed`): no split-K partials, no tickets, and the result does
+not depend on block timing.  A unit holds whole RoPE pairs, and the w1 and
+w3 columns of a unit share a block.  The attention is split across the
+grid (`attention_splits`: 8 heads x 16 splits of 32 slots = 128 items at
+W = 512); an item keeps its max, its sum of exp and its unnormalised value
+sums, and every block that owns wo columns merges all items of every head
+in split order, the fresh row's term last, then divides by the
+denominator, so phase C is deterministic.  An item with no valid slot
+writes max -inf and sum 0, which the merge skips.  The barriers guard:
+A -> B the query and fresh key; B -> C the partials, and A's reads of h
+before C writes it; C -> D and E -> A the whole h; D -> E the gate, and D's
+reads of h before E writes it.  The old ring rows B reads and the weights
+are not written during a call (the fresh rows go to the current slot,
+which B skips).  The scratch (`kept_scratch`: qkv, gate, the partials)
+and the packed weights are kept across calls; the output row is new each
+call and the input row is only read, so a call is one device launch.
+`wt_stream_step_timeline` stamps each block's entry to and exit from each
+phase with the card's global timer.
+
+Not yet done: each phase loads its weights and ring rows after the barrier
+before it (plain 16-byte loads, reads of other blocks' data through L2);
+bulk copies issued before each barrier would overlap them with the wait.
 
 The plain version repeats the TPU kernel's arithmetic and rounding points
 (q and k roped in float32 and rounded to the weight dtype; score products
@@ -45,7 +76,7 @@ max and one denominator) and is the CPU path and the kernel's oracle.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +84,8 @@ import torch.nn.functional as F
 
 from streamvoiceanon_tpu_torch.ops import _build
 from streamvoiceanon_tpu_torch.ops.decode_common import (
-    DTYPE_CODE, check_cuda, dot, matvec_scratch)
+    COOPERATIVE_TOO_LARGE, DTYPE_CODE, MAX_SMEM, barrier_count, check_cuda, column_plan,
+    dot, packed, unit_cols)
 from streamvoiceanon_tpu_torch.ops.norm import rms_norm
 
 # rope-table rows: positions live in [W, TABLE); the ring is re-based every
@@ -204,6 +236,111 @@ def wt_stream_step_plain(layers: Dict, x1: torch.Tensor, k_ring: torch.Tensor,
     return h, k_ring, v_ring
 
 
+# the kernel's plan (csrc/wt_stream.cu)
+PHASES = ("qkv", "wo", "w13", "w2")  # the plan's columns; w13: a w1 and a w3 slice a unit
+MAX_SPLITS = 16  # attention splits a head
+PART = 4  # an item's partial: max, sum of exp, fresh score (split 0), 0, then value sums
+THREADS = 512  # PK_THREADS (csrc/decode_common.cuh)
+MAX_ROW = 2560  # PK_ROW * PK_THREADS: dim and inter
+MAX_HEAD_DIM = 128  # RS_MAXD
+
+
+def phases(L: int) -> List[Tuple[int, str]]:
+    """The kernel's phases in order, (layer, "A".."E"); a grid barrier
+    between each two."""
+    return [(l, k) for l in range(L) for k in "ABCDE"]
+
+
+def phase_units(dim: int, inter: int, dtype) -> Tuple[int, ...]:
+    """Units of each phase of PHASES (w13: one unit is a w1 and a w3 slice)."""
+    u = unit_cols(dtype)
+    return (3 * dim // u, dim // u, inter // u, dim // u)
+
+
+def unit_bytes(dim: int, inter: int) -> Tuple[int, ...]:
+    """Weight bytes of one unit of each phase in one layer."""
+    return (dim * 16, dim * 16, 2 * dim * 16, inter * 16)
+
+
+@functools.lru_cache(maxsize=16)
+def work_plan(dim: int, inter: int, n_blocks: int, dtype) -> np.ndarray:
+    """(n_blocks, 4, 2) int32: per block and phase of PHASES, the first unit
+    it owns and how many, a contiguous run.  The same for every layer."""
+    return column_plan(phase_units(dim, inter, dtype), unit_bytes(dim, inter), n_blocks)
+
+
+def attention_splits(W: int) -> Tuple[int, int]:
+    """(splits a head, slots a split): at most MAX_SPLITS splits of equal
+    span; split i holds slots [i span, min(W, (i + 1) span)) of the ring,
+    none empty."""
+    span = -(-W // min(MAX_SPLITS, W))
+    return -(-W // span), span
+
+
+def attention_items(n_head: int, W: int, n_blocks: int) -> List[List[Tuple[int, int]]]:
+    """Per block, its attention items (head, split) in the order it runs
+    them: item i = head * n_split + split goes to block i % n_blocks."""
+    n_split, _ = attention_splits(W)
+    items: List[List[Tuple[int, int]]] = [[] for _ in range(n_blocks)]
+    for i in range(n_head * n_split):
+        items[i % n_blocks].append(divmod(i, n_split))
+    return items
+
+
+def part_stride(head_dim: int) -> int:
+    """Floats of one item's partial, a multiple of 4 (16-byte loads)."""
+    return -(-(head_dim + PART) // 4) * 4
+
+
+def smem_bytes(dim: int, inter: int, n_head: int, head_dim: int, W: int) -> int:
+    """Shared memory of one block (csrc/wt_stream.cu `smem_floats`): a
+    phase's input row, the staged partials, the block's h columns, an
+    item's query and fresh key, its scores and the value sums by group."""
+    n_split, span = attention_splits(W)
+    return 4 * (max(dim, inter) + n_head * n_split * part_stride(head_dim) + dim
+                + 2 * head_dim + span + THREADS)
+
+
+def check_geometry(L: int, dim: int, n_head: int, head_dim: int, inter: int, W: int,
+                   dtype) -> None:
+    """Raise on a geometry the kernel does not take."""
+    u = unit_cols(dtype)
+    if (n_head * head_dim != dim or head_dim % 2 or head_dim > MAX_HEAD_DIM or dim % u
+            or inter % u or max(dim, inter) > MAX_ROW or L < 1
+            or smem_bytes(dim, inter, n_head, head_dim, W) > MAX_SMEM):
+        raise ValueError("wt_stream_step: unsupported geometry "
+                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, W={W})")
+
+
+_KEPT: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+
+
+def kept_scratch(L: int, dim: int, n_head: int, head_dim: int, inter: int, W: int,
+                 dtype, device) -> Dict[str, torch.Tensor]:
+    """The scratch that the kernel's calls at this geometry and weight type
+    on `device` share (so calls on two streams must not overlap): `qkv`
+    (roped q, roped k, v), `gate` and `part` (the attention items'
+    partials).  Every call writes each before it reads it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # tensors name their card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (L, dim, n_head, head_dim, inter, W, dtype, dev)
+    if key not in _KEPT:
+        n_split, _ = attention_splits(W)
+        _KEPT[key] = {
+            "qkv": torch.empty(3 * dim, dtype=dtype, device=dev),
+            "gate": torch.empty(inter, dtype=dtype, device=dev),
+            "part": torch.empty(n_head * n_split * part_stride(head_dim),
+                                dtype=torch.float32, device=dev)}
+    return _KEPT[key]
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_on(dim: int, inter: int, n_blocks: int, dtype, device: torch.device):
+    plan = work_plan(dim, inter, n_blocks, dtype).reshape(n_blocks, -1)
+    return torch.from_numpy(np.ascontiguousarray(plan)).to(device)
+
+
 def wt_stream_step(layers: Dict, x1: torch.Tensor, k_ring: torch.Tensor,
                    v_ring: torch.Tensor, count: int, *, n_head: int, head_dim: int,
                    rope_base: float = 10000.0, norm_eps: float = 1e-5,
@@ -214,6 +351,22 @@ def wt_stream_step(layers: Dict, x1: torch.Tensor, k_ring: torch.Tensor,
               norm_eps=norm_eps, table_rows=table_rows)
     if x1.device.type == "cpu":
         return wt_stream_step_plain(layers, x1, k_ring, v_ring, count, **kw)
+    h, _ = _launch(layers, x1, k_ring, v_ring, count, timeline=False, **kw)
+    return h, k_ring, v_ring
+
+
+def wt_stream_step_timeline(layers: Dict, x1: torch.Tensor, k_ring: torch.Tensor,
+                            v_ring: torch.Tensor, count: int, **kw) -> torch.Tensor:
+    """One launch of the kernel (arguments as `wt_stream_step`, CUDA
+    tensors; the fresh rows are written as by a call) that also records,
+    per block, the card's global time in ns where it enters and where it
+    leaves each phase: (5 L, blocks, 2) int64, the phases as `phases`
+    lists them."""
+    return _launch(layers, x1, k_ring, v_ring, count, timeline=True, **kw)[1]
+
+
+def _launch(layers, x1, k_ring, v_ring, count, *, n_head, head_dim, rope_base=10000.0,
+            norm_eps=1e-5, table_rows=TABLE, timeline=False):
     w = {k: layers[k]["w"] for k in ("wqkv", "wo", "w1", "w3", "w2",
                                      "attention_norm", "ffn_norm")}
     wd = w["wqkv"].dtype
@@ -225,10 +378,9 @@ def wt_stream_step(layers: Dict, x1: torch.Tensor, k_ring: torch.Tensor,
     L, dim, three = w["wqkv"].shape
     inter = w["w1"].shape[-1]
     W = k_ring.shape[1]
-    if (three != 3 * dim or n_head * head_dim != dim or head_dim % 2
-            or head_dim > 128 or dim % 8 or inter % 8):
-        raise ValueError("wt_stream_step: unsupported geometry "
-                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter})")
+    if three != 3 * dim:
+        raise ValueError(f"wt_stream_step: wqkv must be (L, dim, 3 dim), got {three}")
+    check_geometry(L, dim, n_head, head_dim, inter, W, wd)
     if k_ring.shape != (L, W, dim) or v_ring.shape != (L, W, dim):
         raise ValueError(f"wt_stream_step: rings must be (L, W, dim), got "
                          f"{tuple(k_ring.shape)} and {tuple(v_ring.shape)}")
@@ -241,25 +393,32 @@ def wt_stream_step(layers: Dict, x1: torch.Tensor, k_ring: torch.Tensor,
     check_cuda("wt_stream_step", {"k_ring": k_ring, "v_ring": v_ring}, rd)
     cos, sin = table_tensors(table_rows, head_dim, n_head, rope_base, dev)
     p = W + count % (table_rows - W)
+    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = _plan_on(dim, inter, n_blocks, wd, dev)
+    n_split, span = attention_splits(W)
+    mats = [packed(w[k]) for k in ("wqkv", "wo", "w1", "w3", "w2")]
+    kept = kept_scratch(L, dim, n_head, head_dim, inter, W, wd, dev)
 
-    h = x1.to(device=dev, dtype=wd).contiguous().clone()
-    qkv = torch.empty((1, 3 * dim), dtype=wd, device=dev)
-    attn = torch.empty((1, dim), dtype=wd, device=dev)
-    gate = torch.empty((1, inter), dtype=wd, device=dev)
-    partials, counters = matvec_scratch(
-        1, [(dim, 3 * dim, 1), (dim, dim, 1), (dim, inter, 2), (inter, dim, 1)], dev)
-    ptr = lambda t: t.data_ptr()
+    x = x1.to(device=dev, dtype=wd).contiguous()
+    h = torch.empty((1, dim), dtype=wd, device=dev)
+    stamps = (torch.zeros((len(phases(L)), n_blocks, 2), dtype=torch.int64, device=dev)
+              if timeline else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = _build.load("wt_stream")(
-        DTYPE_CODE[wd], DTYPE_CODE[rd], ptr(h), ptr(w["wqkv"]), ptr(w["wo"]),
-        ptr(w["w1"]), ptr(w["w3"]), ptr(w["w2"]), ptr(w["attention_norm"]),
-        ptr(w["ffn_norm"]), ptr(w["attn_scale"]), ptr(w["ffn_scale"]), ptr(k_ring),
-        ptr(v_ring), ptr(cos), ptr(sin), int(p), int(count), ptr(qkv), ptr(attn),
-        ptr(gate), ptr(partials), ptr(counters), L, dim, n_head, head_dim, inter, W,
-        float(norm_eps), torch.cuda.current_stream(dev).cuda_stream)
+        DTYPE_CODE[wd], DTYPE_CODE[rd], ptr(x), ptr(h), *[ptr(m) for m in mats],
+        ptr(w["attention_norm"]), ptr(w["ffn_norm"]), ptr(w["attn_scale"]),
+        ptr(w["ffn_scale"]), ptr(k_ring), ptr(v_ring), ptr(cos[p]), ptr(sin[p]), ptr(plan),
+        ptr(kept["qkv"]), ptr(kept["gate"]), ptr(kept["part"]), ptr(stamps),
+        ptr(barrier_count("wt_stream", dev)), n_blocks, int(count), L, dim, n_head,
+        head_dim, inter, W, n_split, span, float(norm_eps), float(1.0 / np.sqrt(head_dim)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"wt_stream_step: a grid of {n_blocks} blocks, one per SM, cannot "
+                           "be resident at once (cudaErrorCooperativeLaunchTooLarge)")
     if rc != 0:
         raise RuntimeError(f"wt_stream_step: CUDA launch failed with error {rc}")
     wt_stream_step.launches += 1
-    return h, k_ring, v_ring
+    return h, stamps
 
 
 wt_stream_step.launches = 0

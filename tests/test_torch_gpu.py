@@ -93,13 +93,17 @@ def test_slow_step_kernel_matches_plain_at_split_edges(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("size", ["full", "tiny"])
+@pytest.mark.parametrize("size", ["full", "full_early", "tiny"])
 def test_ring_step_kernel_matches_plain(size):
-    """At the published width across a rebase (3583, 3584), and at the tiny
-    ring through three rebases (W = R = 8)."""
+    """At the published width across a rebase (3583, 3584); at counts < W
+    where most of the 16 attention splits of a head hold no valid slot
+    (count 2: one old slot, in split 0; 33: splits 0 and 1 only); and at
+    the tiny ring through three rebases (W = R = 8)."""
     _need_card()
     if size == "full":
         wcfg, counts = C.PipelineConfig().tokenizer.transformer, chip_smoke.RING_COUNTS
+    elif size == "full_early":
+        wcfg, counts = C.PipelineConfig().tokenizer.transformer, (2, 31, 32, 33, 100)
     else:
         wcfg, counts = TINY_RING, range(26)
     assert chip_smoke.compare_ring(wcfg, "cuda", torch.float32, counts, True) <= chip_smoke.TOL
