@@ -52,7 +52,7 @@ W = 512); an item keeps its max, its sum of exp and its unnormalised value
 sums, and every block that owns wo columns merges all items of every head
 in split order, the fresh row's term last, then divides by the
 denominator, so phase C is deterministic.  An item with no valid slot
-writes max -inf and sum 0, which the merge skips.  The barriers guard:
+writes max -inf and sum 0, which the merge weighs by 0.  The barriers guard:
 A -> B the query and fresh key; B -> C the partials, and A's reads of h
 before C writes it; C -> D and E -> A the whole h; D -> E the gate, and D's
 reads of h before E writes it.  The old ring rows B reads and the weights
@@ -63,9 +63,13 @@ call and the input row is only read, so a call is one device launch.
 `wt_stream_step_timeline` stamps each block's entry to and exit from each
 phase with the card's global timer.
 
-Not yet done: each phase loads its weights and ring rows after the barrier
-before it (plain 16-byte loads, reads of other blocks' data through L2);
-bulk copies issued before each barrier would overlap them with the wait.
+Not done: each phase loads its weights and ring rows after the barrier
+before it (plain 16-byte loads; other blocks' data through L2).  Bulk
+copies (TMA) of the next phase's weights and rows into shared memory,
+issued one phase ahead or just before the barrier, made the call slower on
+the H100, and loads into registers issued before the barrier no faster,
+since the barrier's release and acquire wait for them (PERF.md §6).  A
+phase now costs about 2.6 to 3.9 us and a barrier about 1 us.
 
 The plain version repeats the TPU kernel's arithmetic and rounding points
 (q and k roped in float32 and rounded to the weight dtype; score products
@@ -294,11 +298,14 @@ def part_stride(head_dim: int) -> int:
 
 def smem_bytes(dim: int, inter: int, n_head: int, head_dim: int, W: int) -> int:
     """Shared memory of one block (csrc/wt_stream.cu `smem_floats`): a
-    phase's input row, the staged partials, the block's h columns, an
-    item's query and fresh key, its scores and the value sums by group."""
+    phase's input row, the staged partials, the block's h columns and
+    their LayerScales, an item's query and fresh key, its scores, the value
+    sums by group, and the merge's item weights, denominators and fresh-row
+    weights."""
     n_split, span = attention_splits(W)
-    return 4 * (max(dim, inter) + n_head * n_split * part_stride(head_dim) + dim
-                + 2 * head_dim + span + THREADS)
+    n_item = n_head * n_split
+    return 4 * (max(dim, inter) + n_item * part_stride(head_dim) + 2 * dim + 2 * head_dim
+                + span + THREADS + n_item + 2 * n_head)
 
 
 def check_geometry(L: int, dim: int, n_head: int, head_dim: int, inter: int, W: int,

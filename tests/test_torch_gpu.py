@@ -110,6 +110,27 @@ def test_ring_step_kernel_matches_plain(size):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("size", ["full", "tiny"])
+def test_ring_timeline_phases_are_separated_by_grid_barriers(size):
+    """Every block stamps each of the 5 L phases, entry before exit, and no
+    block enters a phase before every block has left the one before."""
+    _need_card()
+    from streamvoiceanon_tpu_torch.ops.wt_stream import phases, wt_stream_step_timeline
+
+    wcfg = C.PipelineConfig().tokenizer.transformer if size == "full" else TINY_RING
+    layers = chip_smoke.wt_layers(wcfg, "cuda", torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x, kr, vr = chip_smoke.ring_inputs(wcfg, "cuda", torch.float32, 3, g)
+    t = wt_stream_step_timeline(layers, x, kr, vr, 3, n_head=wcfg.n_head,
+                                head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
+                                norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
+    t = t.cpu().numpy()
+    assert t.shape[0] == len(phases(wcfg.n_layer)) == 5 * wcfg.n_layer
+    assert (t > 0).all() and (t[:, :, 1] >= t[:, :, 0]).all()
+    assert (t[1:, :, 0].min(axis=1) >= t[:-1, :, 1].max(axis=1)).all()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("size", ["full", *sorted(TINY_HEADS)])
 def test_head_kernel_matches_plain(size):
     _need_card()

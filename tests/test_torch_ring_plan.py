@@ -194,7 +194,8 @@ def _model_step(layers, x1, k_ring, v_ring, count, *, n_head, head_dim, n_blocks
                 acc = acc + en[:, None] * snap["qkv"][2 * dim :].reshape(H, hd)
                 attn = (acc / den[:, None]).reshape(1, dim).to(wd)
                 hold = (x if l == 0 else snap["h"])[c]
-                live["h"][c] = hold + lay["attn_scale"][l][c] * dot(attn, lay["wo"]["w"][l][:, c])[0]
+                y = dot(attn, lay["wo"]["w"][l][:, c])[0]
+                live["h"][c] = hold + lay["attn_scale"][l][c] * y
                 mark("h", c, dim)
             elif kind == "D":
                 c = cols(b, "w13")
@@ -202,7 +203,8 @@ def _model_step(layers, x1, k_ring, v_ring, count, *, n_head, head_dim, n_blocks
                     continue
                 fn = rms_norm(snap["h"][None], lay["ffn_norm"]["w"][l], norm_eps)
                 a = dot(fn, lay["w1"]["w"][l][:, c])
-                live["gate"][c] = ((a / (1.0 + torch.exp(-a))) * dot(fn, lay["w3"]["w"][l][:, c]))[0]
+                g = dot(fn, lay["w3"]["w"][l][:, c])
+                live["gate"][c] = ((a / (1.0 + torch.exp(-a))) * g)[0]
                 mark("gate", c, inter)
             else:
                 c = cols(b, "w2")
