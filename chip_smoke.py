@@ -670,14 +670,14 @@ def head_breakdown(hcfg, device, n: int = 30):
             "graph_ms": graph_ms, "by_kernel": by_kernel, "advance_us": advance_us}
 
 
-def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30, expect=1):
+def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30):
     """The ring step (float32, as on the main path) at `count`: its
     CUDA-event time a call, the host's time to enqueue one, its time
     replayed from a CUDA graph, and from torch.profiler its device launches
-    a call and their device time by kernel (with `expect`, the launches
-    must be that many: one for the persistent kernel); where the tree has
-    `wt_stream_step_timeline`, one call's phases by the card's global
-    timer (`ring_phase_split`)."""
+    a call and their device time by kernel.  Where the package has
+    `wt_stream_step_timeline` (the persistent kernel), the launches must
+    be one a call, and one call's phases are split by the card's global
+    timer (`ring_phase_split`); an earlier tree's launches are reported."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -690,6 +690,7 @@ def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30, expect=1):
     x, kr, vr = ring_inputs(wcfg, device, dt, count, g)
     rkw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
                norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
+    persistent = hasattr(wts, "wt_stream_step_timeline")
     call = lambda: wts.wt_stream_step(layers, x, kr, vr, count, **rkw)
     call_ms = cuda_ms(call, n)
     torch.cuda.synchronize()
@@ -729,12 +730,11 @@ def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30, expect=1):
             k[0] += e.count / m
             k[1] += us / 1e3 / m
         launches = sum(c for c, _ in by_kernel.values())
-        if launches == round(launches) and (expect is None or launches == expect):
+        if launches == round(launches) and (launches == 1 or not persistent):
             break
-    if expect is not None and launches != expect:
-        raise AssertionError(f"ring step: {launches:g} device launches a call, expected "
-                             f"{expect}: " + ", ".join(f"{k} {c:g}" for k, (c, _) in
-                                                       by_kernel.items()))
+    if persistent and launches != 1:
+        raise AssertionError(f"ring step: {launches:g} device launches a call, expected one: "
+                             + ", ".join(f"{k} {c:g}" for k, (c, _) in by_kernel.items()))
     device_ms = sum(ms for _, ms in by_kernel.values())
     log(f"[2] ring step f32 count {count}: {call_ms:.4f} ms a call (CUDA events), "
         f"{host_ms:.4f} ms to enqueue one (host clock, 10 calls); {graph_note}; "
@@ -743,7 +743,7 @@ def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30, expect=1):
         + ", ".join(f"{k} {c:g} launches {ms:.4f} ms" for k, (c, ms) in by_kernel.items()))
     out = {"ms": call_ms, "host_ms": host_ms, "graph_ms": graph_ms, "launches": launches,
            "device_ms": device_ms, "by_kernel": by_kernel}
-    if hasattr(wts, "wt_stream_step_timeline"):
+    if persistent:
         out["phases"] = ring_phase_split(
             wts.wt_stream_step_timeline(layers, x, kr, vr, count, **rkw))
         ph = out["phases"]

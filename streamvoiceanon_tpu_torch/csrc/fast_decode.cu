@@ -19,7 +19,9 @@
 // resident counts, `resident_plan`: about 40 % of the weights), and before
 // each barrier bulk-copies (TMA) the next phase's other tasks into a ring,
 // so that they arrive while the grid waits.  Data that other blocks wrote
-// during the launch is read with ld.global.cg (L2), never through L1.
+// during the launch is read with ld.global.cg (L2), never through L1.  The
+// grid barrier, those L2 reads, the column-owner matvec and the bulk-copy
+// helpers live in decode_common.cuh, shared with the ring step.
 // Every row a thread needs is loaded before its first use; the attention
 // is one warp a head with no block barrier, and the sampler runs across
 // the block, two bisection steps a round.  Rounding follows the TPU kernel:
