@@ -44,11 +44,10 @@
 //
 // A phase loads its weights and ring rows after the barrier before it,
 // 16 bytes a lane, PK_DEPTH loads in flight.  Copying them earlier was
-// measured slower or no faster on the H100 (PERF.md §6): bulk copies
-// (TMA) into shared memory one phase ahead slowed the phases they ran
-// beside, and loads issued before a barrier made the barrier's release and
-// acquire wait for them.  Phase C's merge computes each item's weight and
-// each head's denominator once, then every column of the attention row.
+// measured slower or no faster on the H100 (PERF.md §6): bulk copies (TMA)
+// into shared memory one phase ahead slowed the phases they ran beside,
+// and loads issued before a barrier made the barrier's release and acquire
+// wait for them.
 //
 // Rounding follows the TPU kernel: qkv rounded to W; q and k roped in
 // float32 from the signed row (x * cos + partner(x) * sin) and rounded to
@@ -118,30 +117,11 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
   float* xs = reinterpret_cast<float*>(smem4);  // (max(dim, inter)) a phase's input row
   float* mp = xs + max(dim, inter);              // (n_item ps) the partials, in C
   float* hs = mp + n_item * ps;                  // (dim) the block's columns of h, old
-  float* ss = hs + dim;                          // (dim) their LayerScales
-  float* qn = ss + dim;                          // (2 hd) an item's query and fresh key
+  float* qn = hs + dim;                          // (2 hd) an item's query and fresh key
   float* sc = qn + 2 * hd;                       // (span) an item's scores, then weights
   float* vred = sc + a.span;                     // (RS_THREADS) value sums by slot group
-  float* mw = vred + RS_THREADS;  // (n_item + 2 n_head) C: item weights, denominators, fresh
   __shared__ float red[RS_WARPS * 8];
   __shared__ float scal[32];
-
-  const int* my = a.plan + blockIdx.x * 2 * RS_NPH;
-  const int u_qkv = my[0], n_qkv = my[1], u_wo = my[2], n_wo = my[3];
-  const int u_13 = my[4], n_13 = my[5], u_w2 = my[6], n_w2 = my[7];
-
-  // A task's weight slice: matrix m (w1 or w3 in phase D) of one unit, K x
-  // 16 bytes, in the packed layout
-  auto task = [&](int l, int k, int t) -> const uint4* {
-    const size_t ld = (size_t)l * dim;
-    const W* m;
-    if (k == 0) m = a.wqkv + ld * 3 * dim + (size_t)(u_qkv + t) * dim * VEC;
-    else if (k == 2) m = a.wo + ld * dim + (size_t)(u_wo + t) * dim * VEC;
-    else if (k == 3)
-      m = ((t & 1) ? a.w3 : a.w1) + ld * inter + (size_t)(u_13 + t / 2) * dim * VEC;
-    else m = a.w2 + ld * inter + (size_t)(u_w2 + t) * inter * VEC;
-    return reinterpret_cast<const uint4*>(m);
-  };
 
   // with `stamps`: each block's global time where it enters and leaves
   // every phase
@@ -159,19 +139,18 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
       stamp(0);
     }
   };
+  const int* my = a.plan + blockIdx.x * 2 * RS_NPH;
+  const int u_qkv = my[0], n_qkv = my[1], u_wo = my[2], n_wo = my[3];
+  const int u_13 = my[4], n_13 = my[5], u_w2 = my[6], n_w2 = my[7];
+
   // h += LayerScale * product, rounded to W, in the columns of a unit run
-  // from u0; hs and ss hold those columns of h as the phase found them and
-  // their LayerScales
-  auto resid = [&](int u0) {
-    return [&, u0](int u, int v, auto sm) {
-      const int i = u * VEC + v;
-      a.h[(u0 + u) * VEC + v] = from_f<W>(hs[i] + rnd<W>(ss[i] * rnd<W>(sm(0, v))));
+  // from u0; hs holds those columns of h as the phase found them
+  auto resid = [&](int u0, const W* scale) {
+    return [&, u0, scale](int u, int v, auto sm) {
+      const int c = (u0 + u) * VEC + v;
+      a.h[c] = from_f<W>(hs[u * VEC + v] + rnd<W>(to_f<W>(__ldg(scale + c)) * rnd<W>(sm(0, v))));
     };
   };
-  // the RoPE row at the column this thread rounds first in phase A
-  const int c_mine = u_qkv * VEC + tid;
-  const float cos_mine = tid < n_qkv * VEC && c_mine < 2 * dim ? __ldg(a.cosr + c_mine % dim) : 0.f;
-  const float sin_mine = tid < n_qkv * VEC && c_mine < 2 * dim ? __ldg(a.sinr + c_mine % dim) : 0.f;
 
   stamp(0);
   for (int l = 0; l < a.L; ++l) {
@@ -182,8 +161,10 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
     // A: RMSNorm, qkv; q and k roped, the fresh k and v into the ring
     if (n_qkv > 0) {
       norm_row<W>(l == 0 ? a.x : a.h, l > 0, a.anorm + ld, dim, a.eps, xs, scal);
-      matvec_tasks<W, 1>(xs, dim, n_qkv, red, [&](int t) { return task(l, 0, t); },
-                         [&](int u, int v, auto sm) {
+      const W* wl = a.wqkv + ld * 3 * dim;
+      matvec_tasks<W, 1>(xs, dim, n_qkv, red, [&](int t) {
+        return reinterpret_cast<const uint4*>(wl + (size_t)(u_qkv + t) * dim * VEC);
+      }, [&](int u, int v, auto sm) {
         const int c = (u_qkv + u) * VEC + v;
         const float val = rnd<W>(sm(0, v));
         if (c >= 2 * dim) {
@@ -192,10 +173,8 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
           return;
         }
         const int cc = c < dim ? c : c - dim;  // the partner is column cc ^ 1
-        const bool mine = u * VEC + v == tid;
-        const float cs = mine ? cos_mine : __ldg(a.cosr + cc);
-        const float sn = mine ? sin_mine : __ldg(a.sinr + cc);
-        const float r = rnd<W>(val * cs + rnd<W>(sm(0, v ^ 1)) * sn);
+        const float r =
+            rnd<W>(val * __ldg(a.cosr + cc) + rnd<W>(sm(0, v ^ 1)) * __ldg(a.sinr + cc));
         a.qkv[c] = from_f<W>(r);
         if (c >= dim) krl[(size_t)slot * dim + cc] = from_f<C>(r);
       });
@@ -253,9 +232,9 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
         s += e;
       }
       s = block_reduce<false>(s, scal, tid, RS_THREADS);
-      // value sums: thread (group g, dim gd), slots j0 + g, j0 + g + ng, ..;
+      // value sums: thread (group g, dim d), slots j0 + g, j0 + g + ng, ..;
       // then the groups in order
-      const int ng = RS_THREADS / hd, g = tid / hd, gd = tid % hd;
+      const int ng = RS_THREADS / hd, g = tid / hd, d = tid % hd;
       if (g < ng) {
         float acc = 0.f;
         for (int jb = j0 + g; jb < j1; jb += 4 * ng) {
@@ -264,13 +243,13 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
           for (int r = 0; r < 4; ++r) {
             const int j = jb + r * ng;
             vv[r] = j < j1 && j < nv && j != slot
-                        ? to_f<C>(vrl[(size_t)j * dim + hh * hd + gd]) : 0.f;
+                        ? to_f<C>(vrl[(size_t)j * dim + hh * hd + d]) : 0.f;
           }
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             if (jb + r * ng < j1) acc = fmaf(sc[jb + r * ng - j0], vv[r], acc);
         }
-        vred[g * hd + gd] = acc;
+        vred[g * hd + d] = acc;
       }
       __syncthreads();
       float* pt = a.part + (size_t)it * ps;
@@ -294,55 +273,50 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
       const float4* src = reinterpret_cast<const float4*>(a.part);
       float4* dst = reinterpret_cast<float4*>(mp);
       for (int i = tid; i < n_item * ps / 4; i += RS_THREADS) dst[i] = __ldcg(src + i);
-      for (int i = tid; i < n_wo * VEC; i += RS_THREADS) {
+      for (int i = tid; i < n_wo * VEC; i += RS_THREADS)
         hs[i] = l == 0 ? to_f<W>(__ldg(a.x + u_wo * VEC + i)) : ld_cg(a.h + u_wo * VEC + i);
-        ss[i] = to_f<W>(__ldg(a.ascale + ld + u_wo * VEC + i));
-      }
       float vn[PK_ROW];
       load_row<W>(a.qkv + 2 * dim, true, dim, vn);
-      __syncthreads();
-      // each item's weight exp(max - head max) (0 for an item with no valid
-      // slot), the head max taken over its items and the fresh row; each
-      // head's fresh-row weight
-      const int ns = a.n_split, nh = a.n_head;
-      for (int i = tid; i < n_item; i += RS_THREADS) {
-        const float* pp = mp + (size_t)(i - i % ns) * ps;
-        float mx = pp[2];
-        for (int j = 0; j < ns; ++j) mx = fmaxf(mx, pp[j * ps]);
-        const float mi = mp[(size_t)i * ps];
-        mw[i] = mi == -CUDART_INF_F ? 0.f : expf(mi - mx);
-        if (i % ns == 0) mw[n_item + nh + i / ns] = expf(pp[2] - mx);
-      }
-      __syncthreads();
-      // each head's denominator: its items in split order, then the fresh row
-      for (int h = tid; h < nh; h += RS_THREADS) {
-        float den = 0.f;
-        for (int j = 0; j < ns; ++j) den += mp[(size_t)(h * ns + j) * ps + 1] * mw[h * ns + j];
-        mw[n_item + h] = den + mw[n_item + nh + h];
-      }
       __syncthreads();
 #pragma unroll
       for (int r = 0; r < PK_ROW; ++r) {
         const int c = tid + r * RS_THREADS;
         if (c >= dim) break;
         const int hh = c / hd, d = c % hd;
-        const float* pp = mp + (size_t)hh * ns * ps + RS_PART + d;
-        float acc = 0.f;
-        for (int j = 0; j < ns; ++j) acc += pp[j * ps] * mw[hh * ns + j];
-        acc += mw[n_item + nh + hh] * vn[r];
-        xs[c] = rnd<W>(acc / mw[n_item + hh]);
+        const float* pp = mp + (size_t)hh * a.n_split * ps;
+        const float s_new = pp[2];
+        float mx = s_new;
+        for (int i = 0; i < a.n_split; ++i) mx = fmaxf(mx, pp[i * ps]);
+        float den = 0.f, acc = 0.f;
+        for (int i = 0; i < a.n_split; ++i) {
+          const float mi = pp[i * ps];
+          if (mi == -CUDART_INF_F) continue;  // no valid slot: nothing to add
+          const float w = expf(mi - mx);
+          den += pp[i * ps + 1] * w;
+          acc += pp[i * ps + RS_PART + d] * w;
+        }
+        const float en = expf(s_new - mx);
+        den += en;
+        acc += en * vn[r];
+        xs[c] = rnd<W>(acc / den);
       }
       __syncthreads();
-      matvec_tasks<W, 1>(xs, dim, n_wo, red, [&](int t) { return task(l, 2, t); },
-                         resid(u_wo));
+      const W* wl = a.wo + ld * dim;
+      matvec_tasks<W, 1>(xs, dim, n_wo, red, [&](int t) {
+        return reinterpret_cast<const uint4*>(wl + (size_t)(u_wo + t) * dim * VEC);
+      }, resid(u_wo, a.ascale + ld));
     }
     end_phase(true);
 
     // D: RMSNorm, w1 and w3, the SwiGLU gate
     if (n_13 > 0) {
       norm_row<W>(a.h, true, a.fnorm + ld, dim, a.eps, xs, scal);
-      matvec_tasks<W, 2>(xs, dim, n_13, red, [&](int t) { return task(l, 3, t); },
-                         [&](int u, int v, auto sm) {
+      const W* w1l = a.w1 + ld * inter;
+      const W* w3l = a.w3 + ld * inter;
+      matvec_tasks<W, 2>(xs, dim, n_13, red, [&](int t) {
+        return reinterpret_cast<const uint4*>(((t & 1) ? w3l : w1l) +
+                                              (size_t)(u_13 + t / 2) * dim * VEC);
+      }, [&](int u, int v, auto sm) {
         const float x = rnd<W>(sm(0, v));
         const float silu = x / (1.f + expf(-x));
         a.gate[(u_13 + u) * VEC + v] = from_f<W>(rnd<W>(silu) * rnd<W>(sm(1, v)));
@@ -352,35 +326,32 @@ __global__ void __launch_bounds__(RS_THREADS, 1) ring_step_kernel(const RingArgs
 
     // E: w2 and the residual
     if (n_w2 > 0) {
-      for (int i = tid; i < n_w2 * VEC; i += RS_THREADS) {
-        hs[i] = ld_cg(a.h + u_w2 * VEC + i);
-        ss[i] = to_f<W>(__ldg(a.fscale + ld + u_w2 * VEC + i));
-      }
+      for (int i = tid; i < n_w2 * VEC; i += RS_THREADS) hs[i] = ld_cg(a.h + u_w2 * VEC + i);
       float gv[PK_ROW];
       load_row<W>(a.gate, true, inter, gv);
 #pragma unroll
       for (int r = 0; r < PK_ROW; ++r)
         if (tid + r * RS_THREADS < inter) xs[tid + r * RS_THREADS] = gv[r];
       __syncthreads();
-      matvec_tasks<W, 1>(xs, inter, n_w2, red, [&](int t) { return task(l, 4, t); },
-                         resid(u_w2));
+      const W* wl = a.w2 + (size_t)l * inter * dim;
+      matvec_tasks<W, 1>(xs, inter, n_w2, red, [&](int t) {
+        return reinterpret_cast<const uint4*>(wl + (size_t)(u_w2 + t) * inter * VEC);
+      }, resid(u_w2, a.fscale + ld));
     }
     end_phase(l + 1 < a.L);
   }
 }
 
 // shared memory of a block, floats (ops/wt_stream.py `smem_bytes`)
-inline size_t smem_floats(int dim, int inter, int hd, int n_head, int n_item, int ps,
-                          int span) {
-  return (size_t)max(dim, inter) + (size_t)n_item * ps + 2 * dim + 2 * hd + span + RS_THREADS +
-         n_item + 2 * n_head;
+inline size_t smem_floats(int dim, int inter, int hd, int n_item, int ps, int span) {
+  return (size_t)max(dim, inter) + (size_t)n_item * ps + dim + 2 * hd + span + RS_THREADS;
 }
 
 template <typename W, typename C>
 cudaError_t launch(const RingArgs<W, C>& a, int grid, cudaStream_t st) {
   auto kern = ring_step_kernel<W, C>;
-  const size_t smem = 4 * smem_floats(a.dim, a.inter, a.head_dim, a.n_head,
-                                      a.n_head * a.n_split, a.ps, a.span);
+  const size_t smem = 4 * smem_floats(a.dim, a.inter, a.head_dim, a.n_head * a.n_split,
+                                      a.ps, a.span);
   cudaError_t e;
   if (smem > 48 * 1024 &&
       (e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -52,7 +52,7 @@ W = 512); an item keeps its max, its sum of exp and its unnormalised value
 sums, and every block that owns wo columns merges all items of every head
 in split order, the fresh row's term last, then divides by the
 denominator, so phase C is deterministic.  An item with no valid slot
-writes max -inf and sum 0, which the merge weighs by 0.  The barriers guard:
+writes max -inf and sum 0, which the merge skips.  The barriers guard:
 A -> B the query and fresh key; B -> C the partials, and A's reads of h
 before C writes it; C -> D and E -> A the whole h; D -> E the gate, and D's
 reads of h before E writes it.  The old ring rows B reads and the weights
@@ -69,7 +69,7 @@ copies (TMA) of the next phase's weights and rows into shared memory,
 issued one phase ahead or just before the barrier, made the call slower on
 the H100, and loads into registers issued before the barrier no faster,
 since the barrier's release and acquire wait for them (PERF.md §6).  A
-phase now costs about 2.6 to 3.9 us and a barrier about 1 us.
+phase now costs about 2.6 to 4.1 us and a barrier about 1 us.
 
 The plain version repeats the TPU kernel's arithmetic and rounding points
 (q and k roped in float32 and rounded to the weight dtype; score products
@@ -298,14 +298,11 @@ def part_stride(head_dim: int) -> int:
 
 def smem_bytes(dim: int, inter: int, n_head: int, head_dim: int, W: int) -> int:
     """Shared memory of one block (csrc/wt_stream.cu `smem_floats`): a
-    phase's input row, the staged partials, the block's h columns and
-    their LayerScales, an item's query and fresh key, its scores, the value
-    sums by group, and the merge's item weights, denominators and fresh-row
-    weights."""
+    phase's input row, the staged partials, the block's h columns, an
+    item's query and fresh key, its scores and the value sums by group."""
     n_split, span = attention_splits(W)
-    n_item = n_head * n_split
-    return 4 * (max(dim, inter) + n_item * part_stride(head_dim) + 2 * dim + 2 * head_dim
-                + span + THREADS + n_item + 2 * n_head)
+    return 4 * (max(dim, inter) + n_head * n_split * part_stride(head_dim) + dim
+                + 2 * head_dim + span + THREADS)
 
 
 def check_geometry(L: int, dim: int, n_head: int, head_dim: int, inter: int, W: int,
