@@ -29,7 +29,8 @@ Phases, each reported on its own lines:
      partials are filled with NaN, which must not reach any output;
    - the fused ConvNeXt front over 8 consecutive chunks, each side
      carrying its own packed state, float32: max abs error <= 1e-3 over z
-     and every packed buffer;
+     and every packed buffer; before chunk 4 the kernel's kept scratch is
+     filled with NaN, which must not reach any output;
    - the per-head decode attention (12 heads x 64, 2 new rows, 2048 cache
      rows) at pos 0, 1000 and 2046, float32: max abs error <= 1e-3 over
      the output and both caches; bf16 is reported; cache rows >= pos + 2
@@ -50,6 +51,8 @@ Phases, each reported on its own lines:
    each launch's advance; for the ring step (float32, count 1000) the
    same, its device launches a call (must be one) and one launch's
    phases split into work and barrier wait by the card's global timer;
+   for the ConvNeXt front (float32, T0 = 4) the same (`front_breakdown`:
+   one device launch a call, its 46 phases grouped by kind and place);
    then kernel and plain times
    (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
    time the card could take for the same work, and for the attention the
@@ -670,28 +673,12 @@ def head_breakdown(hcfg, device, n: int = 30):
             "graph_ms": graph_ms, "by_kernel": by_kernel, "advance_us": advance_us}
 
 
-def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30):
-    """The ring step (float32, as on the main path) at `count`: its
-    CUDA-event time a call, the host's time to enqueue one, its time
-    replayed from a CUDA graph, and from torch.profiler its device launches
-    a call and their device time by kernel.  Where the package has
-    `wt_stream_step_timeline` (the persistent kernel), the launches must
-    be one a call, and one call's phases are split by the card's global
-    timer (`ring_phase_split`); an earlier tree's launches are reported."""
+def call_times(call, n: int):
+    """A call's CUDA-event ms, the host's ms to enqueue one (10 calls), and
+    its ms replayed from a CUDA graph (None, with the reason in the note,
+    where the capture fails)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from streamvoiceanon_tpu_torch.ops import wt_stream as wts
-
-    dt = torch.float32
-    layers = wt_layers(wcfg, device, dt)
-    g = torch.Generator(device=device).manual_seed(17)
-    x, kr, vr = ring_inputs(wcfg, device, dt, count, g)
-    rkw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
-               norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
-    persistent = hasattr(wts, "wt_stream_step_timeline")
-    call = lambda: wts.wt_stream_step(layers, x, kr, vr, count, **rkw)
     call_ms = cuda_ms(call, n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -709,10 +696,18 @@ def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30):
     except Exception as e:  # report, do not fail: capture is a measurement here
         graph_ms = None
         graph_note = f"no CUDA graph: the capture failed ({type(e).__name__}: {e})"
-    # the profiler may drop device records at the edge of its window, never
-    # adds any: take the first of up to three windows whose launch count is
-    # a whole number a call
-    m = 10
+    return call_ms, host_ms, graph_ms, graph_note
+
+
+def profile_launches(call, ok, m: int = 10):
+    """torch.profiler over m calls: (device launches a call, {kernel:
+    [launches, device ms] a call}, window).  The profiler may drop device
+    records at the edge of its window, never adds any: take the first of up
+    to three windows whose launch count `ok` accepts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for window in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(m):
@@ -730,8 +725,35 @@ def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30):
             k[0] += e.count / m
             k[1] += us / 1e3 / m
         launches = sum(c for c, _ in by_kernel.values())
-        if launches == round(launches) and (launches == 1 or not persistent):
+        if ok(launches):
             break
+    return launches, by_kernel, window
+
+
+def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30):
+    """The ring step (float32, as on the main path) at `count`: its
+    CUDA-event time a call, the host's time to enqueue one, its time
+    replayed from a CUDA graph, and from torch.profiler its device launches
+    a call and their device time by kernel.  Where the package has
+    `wt_stream_step_timeline` (the persistent kernel), the launches must
+    be one a call, and one call's phases are split by the card's global
+    timer (`ring_phase_split`); an earlier tree's launches are reported."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops import wt_stream as wts
+
+    dt = torch.float32
+    layers = wt_layers(wcfg, device, dt)
+    g = torch.Generator(device=device).manual_seed(17)
+    x, kr, vr = ring_inputs(wcfg, device, dt, count, g)
+    rkw = dict(n_head=wcfg.n_head, head_dim=wcfg.head_dim, rope_base=wcfg.rope_base,
+               norm_eps=wcfg.norm_eps, table_rows=wcfg.rope_table_rows)
+    persistent = hasattr(wts, "wt_stream_step_timeline")
+    call = lambda: wts.wt_stream_step(layers, x, kr, vr, count, **rkw)
+    call_ms, host_ms, graph_ms, graph_note = call_times(call, n)
+    m = 10
+    launches, by_kernel, window = profile_launches(
+        call, lambda c: c == round(c) and (c == 1 or not persistent), m)
     if persistent and launches != 1:
         raise AssertionError(f"ring step: {launches:g} device launches a call, expected one: "
                              + ", ".join(f"{k} {c:g}" for k, (c, _) in by_kernel.items()))
@@ -754,6 +776,98 @@ def ring_breakdown(wcfg, device, count: int = 1000, n: int = 30):
                         f"(busy {v['busy_us']:.2f})" for k, v in ph["kinds"].items())
             + f"; all {ph['total_us']:.1f} us, of it in barriers {ph['wait_us']:.1f} us")
     return out
+
+
+def front_breakdown(tcfg, device, n: int = 30):
+    """The ConvNeXt front (float32, T0 = 4, as on the `all_five` path): its
+    CUDA-event time a call, the host's time to enqueue one, its time
+    replayed from a CUDA graph, and from torch.profiler its device launches
+    a call and their device time by kernel.  Where the package has
+    `encoder_front_step_timeline` (the persistent kernel), the launches
+    must be one a call, and one call's phases are split by the card's
+    global timer (`front_phase_split`); an earlier tree's launches are
+    reported."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops import convnext_enc as enc
+
+    persistent = hasattr(enc, "encoder_front_step_timeline")
+    if persistent:
+        pw, units = front_weights(tcfg, device)
+        kw = {"units": units}
+    else:  # an earlier tree: packed weights only
+        from streamvoiceanon_tpu_torch import params as P
+
+        pw = enc.packed_weights(P.tokenizer_params(front_tree_np(tcfg), device), tcfg)
+        kw = {}
+    g = torch.Generator(device=device).manual_seed(19)
+    st = front_state(tcfg, device, g)
+    mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
+    call = lambda: enc.encoder_front_step(pw, st, mel, tcfg, **kw)
+    call_ms, host_ms, graph_ms, graph_note = call_times(call, n)
+    m = 10
+    launches, by_kernel, window = profile_launches(
+        call, lambda c: c == round(c) and (c == 1 or not persistent), m)
+    if persistent and launches != 1:
+        raise AssertionError(f"front: {launches:g} device launches a call, expected one: "
+                             + ", ".join(f"{k} {c:g}" for k, (c, _) in by_kernel.items()))
+    device_ms = sum(ms for _, ms in by_kernel.values())
+    log(f"[2] front f32 T0 4: {call_ms:.4f} ms a call (CUDA events), {host_ms:.4f} ms to "
+        f"enqueue one (host clock, 10 calls); {graph_note}; torch.profiler over {m} calls "
+        f"(window {window + 1} of at most 3): {launches:g} device launches a call, "
+        f"{device_ms:.4f} ms of device time a call; by kernel: "
+        + ", ".join(f"{k} {c:g} launches {ms:.4f} ms" for k, (c, ms) in by_kernel.items()))
+    out = {"ms": call_ms, "host_ms": host_ms, "graph_ms": graph_ms, "launches": launches,
+           "device_ms": device_ms, "by_kernel": by_kernel}
+    if persistent:
+        out["phases"] = ph = front_phase_split(
+            enc.encoder_front_step_timeline(pw, st, mel, tcfg, units), enc.phases(tcfg))
+        log("[2] front f32 T0 4, one launch's phases by the card's global timer, by kind "
+            "and place, mean us (work: first entry to last exit; barrier: last exit to the "
+            "next phase's last entry; busy: median block's entry to exit; rows and product: "
+            "median owning block's entry to its product's start, and the product to its "
+            "exit; MB: the phase's weight bytes): " + ", ".join(
+                f"{k} {v['n']} x (work {v['work_us']:.2f} + barrier {v['wait_us']:.2f}, busy "
+                f"{v['busy_us']:.2f}, rows {v['rows_us']:.2f} + product "
+                f"{v['product_us']:.2f}, {v['mb']:.3f} MB)" for k, v in ph["kinds"].items())
+            + f"; all {ph['total_us']:.1f} us, of it in barriers {ph['wait_us']:.1f} us")
+        log("[2] front f32 T0 4, the same launch phase by phase, work + barrier us: " + " ".join(
+            f"{p.kind}{p.where}:{w:.2f}+{b:.2f}" for p, w, b in zip(
+                enc.phases(tcfg), ph["work_us"], ph["barrier_us"])))
+    return out
+
+
+def front_phase_split(stamps, phase_list):
+    """Mean times of the front's phases grouped by kind and place (the stem;
+    P, Q of each stage and each downsample block; each transition M and
+    downsample D) from the kernel's stamps (phases, blocks, 3: entry,
+    product start, exit): work, barrier and busy as in `ring_phase_split`;
+    of the blocks that own columns, the median time to their product
+    (loading and computing the rows) and of the product itself; and each
+    group's weight MB a phase."""
+    t = stamps.cpu().numpy().astype(np.int64)
+    entry, start, exit_ = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    work = (exit_.max(1) - entry.min(1)) / 1e3
+    wait = np.append((entry[1:].max(1) - exit_[:-1].max(1)) / 1e3, 0.0)
+    busy = np.median(exit_ - entry, axis=1) / 1e3
+    owns = start > 0
+    rows = np.array([np.median(start[i, o] - entry[i, o]) for i, o in enumerate(owns)]) / 1e3
+    prod = np.array([np.median(exit_[i, o] - start[i, o]) for i, o in enumerate(owns)]) / 1e3
+    kinds = {}
+    for i, p in enumerate(phase_list):
+        key = p.kind if p.kind == "stem" else f"{p.kind} {p.where.split('b')[0]}"
+        k = kinds.setdefault(key, {"n": 0, "work_us": 0.0, "wait_us": 0.0, "busy_us": 0.0,
+                                   "rows_us": 0.0, "product_us": 0.0,
+                                   "mb": p.K * p.N * 4 / 1e6})
+        k["n"] += 1
+        for key_, v in (("work_us", work), ("wait_us", wait), ("busy_us", busy),
+                        ("rows_us", rows), ("product_us", prod)):
+            k[key_] += float(v[i])
+    for k in kinds.values():
+        for key in ("work_us", "wait_us", "busy_us", "rows_us", "product_us"):
+            k[key] /= k["n"]
+    return {"kinds": kinds, "total_us": float(exit_[-1].max() - entry[0].min()) / 1e3,
+            "wait_us": float(wait.sum()), "work_us": work.tolist(), "barrier_us": wait.tolist()}
 
 
 def ring_phase_split(stamps):
@@ -954,29 +1068,36 @@ def front_leaves(state):
 
 
 def front_weights(tcfg, device):
+    """The seeded front's packed weights and their unit-packed matrices."""
     from streamvoiceanon_tpu_torch import params as P
-    from streamvoiceanon_tpu_torch.ops.convnext_enc import packed_weights
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import packed_weights, unit_weights
 
-    return packed_weights(P.tokenizer_params(front_tree_np(tcfg), device), tcfg)
+    pw = packed_weights(P.tokenizer_params(front_tree_np(tcfg), device), tcfg)
+    return pw, unit_weights(pw)
 
 
 def compare_front(tcfg, device, chunks: int, check: bool):
     """The fused ConvNeXt front against its plain version over `chunks`
     chunks of 4 mel frames, each side carrying its own packed state from
-    the same random tails.  Returns the max abs error over z and every
-    packed buffer."""
+    the same random tails; before the middle chunk the kernel's kept
+    scratch (both activation buffers and the hidden rows) is filled with
+    NaN, so that a phase that reads what its call did not write shows up.
+    Returns the max abs error over z and every packed buffer."""
     import torch
 
     from streamvoiceanon_tpu_torch.ops.convnext_enc import (
-        encoder_front_step, encoder_front_step_plain)
+        encoder_front_step, encoder_front_step_plain, kept_scratch)
 
-    pw = front_weights(tcfg, device)
+    pw, units = front_weights(tcfg, device)
     g = torch.Generator(device=device).manual_seed(23)
     sk = sp = front_state(tcfg, device, g)
     worst = 0.0
     for c in range(chunks):
         mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
-        sk, zk = encoder_front_step(pw, sk, mel, tcfg)
+        if c == chunks // 2 and torch.device(device).type == "cuda":
+            for t in kept_scratch(tcfg, device).values():
+                t.fill_(float("nan"))
+        sk, zk = encoder_front_step(pw, sk, mel, tcfg, units=units)
         sp, zp = encoder_front_step_plain(pw, sp, mel, tcfg)
         if not (torch.isfinite(zk).all() and zk.shape == (1, 1, tcfg.quantizer.input_dim)):
             raise AssertionError(f"front chunk {c}: shape {tuple(zk.shape)} or not finite")
@@ -1054,7 +1175,7 @@ def time_front_attention(tcfg, dcfg, device, pos: int):
     from streamvoiceanon_tpu_torch.ops.convnext_enc import (
         encoder_front_step, encoder_front_step_plain)
 
-    pw = front_weights(tcfg, device)
+    pw, units = front_weights(tcfg, device)
     g = torch.Generator(device=device).manual_seed(31)
     st = front_state(tcfg, device, g)
     mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
@@ -1071,7 +1192,7 @@ def time_front_attention(tcfg, dcfg, device, pos: int):
 
     out = {}
     for name, kern, plain in (
-            ("enc", lambda: encoder_front_step(pw, st, mel, tcfg),
+            ("enc", lambda: encoder_front_step(pw, st, mel, tcfg, units=units),
              lambda: encoder_front_step_plain(pw, st, mel, tcfg)),
             ("attn", lambda: decode_attention(q, kn, vn, kc, vc, pos),
              lambda: decode_attention_plain(q, kn, vn, kc, vc, pos))):
@@ -1421,7 +1542,8 @@ def main() -> int:
     log(f"[2] head over 8 chunks, state carried, the kept scratch NaN before chunk 4: f32 "
         f"max abs err {st32['head']['err']:.3e} (bound {TOL})")
     st32["enc"] = {"err": compare_front(tcfg, device, 8, True)}
-    log(f"[2] ConvNeXt front over 8 chunks, state carried: f32 max abs err "
+    log(f"[2] ConvNeXt front over 8 chunks, state carried, the kept scratch NaN before "
+        f"chunk 4: f32 max abs err "
         f"{st32['enc']['err']:.3e} (bound {TOL})")
     ageo = (d.n_head, 2, d.head_dim, d.max_seq_len)
     st32["attn"] = {"err": compare_attention(*ageo, device, torch.float32, ATTN_POS, True)}
@@ -1511,7 +1633,7 @@ def main() -> int:
 
 def breakdown_main() -> int:
     """`python3 chip_smoke.py --breakdown`: phase 2's slow-step, fast-loop,
-    head and ring-step breakdowns alone (main runs them in a child
+    head, ring-step and front breakdowns alone (main runs them in a child
     process)."""
     import torch
 
@@ -1527,6 +1649,7 @@ def breakdown_main() -> int:
     fast_breakdown(d, "cuda")
     head_breakdown(cfg.vocoder.head, "cuda")
     ring_breakdown(cfg.tokenizer.transformer, "cuda")
+    front_breakdown(C.all_five(C.PipelineConfig()).tokenizer, "cuda")
     return 0
 
 

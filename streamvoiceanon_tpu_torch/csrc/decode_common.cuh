@@ -1,22 +1,20 @@
 // Device kernels shared by the dual-AR slow step (slow_decode.cu, which uses
-// the matvec and the sampler with its own split-row attention) and the
-// ConvNeXt encoder front (convnext_enc.cu, which uses the matvec).  The fast
-// codebook loop (fast_decode.cu) and the windowed-transformer ring step
-// (wt_stream.cu) are persistent kernels of their own; they share the pieces
-// of the "persistent kernels" section below: the grid barrier, reads
-// through L2 of what other blocks wrote, the column-owner matvec over packed
-// weights, and the mbarrier and bulk-copy (TMA) helpers.
+// the matvec and the sampler with its own split-row attention).  The fast
+// codebook loop (fast_decode.cu), the windowed-transformer ring step
+// (wt_stream.cu) and the ConvNeXt encoder front (convnext_enc.cu) are
+// persistent kernels of their own; they share the pieces of the "persistent
+// kernels" section below: the grid barrier, reads through L2 of what other
+// blocks wrote, the column-owner matvec over packed weights (the front has
+// its own of four rows, on the same task map), and the mbarrier and
+// bulk-copy (TMA) helpers.
 //
 // Two kernels, launched in sequence by the host entry points:
 //
-//   matvec_kernel   y = x @ W for R (1 to 4) input rows, W (K, N) row-major
+//   matvec_kernel   y = x @ W for R (1 or 2) input rows, W (K, N) row-major
 //                   in float32 or bf16, float32 accumulation.  Optional fused
-//                   RMSNorm of the input, and one of eight epilogues: store,
-//                   store as float32 logits, residual add, residual add of
-//                   the product times a per-column LayerScale, SwiGLU gate
-//                   (two weight matrices in one launch), and with a
-//                   per-column bias: store, exact-erf GELU, residual add of
-//                   (product + bias) times a LayerScale.  Split over K across
+//                   RMSNorm of the input, and one of four epilogues: store,
+//                   store as float32 logits, residual add, SwiGLU gate (two
+//                   weight matrices in one launch).  Split over K across
 //                   blocks; the last block of a column tile to finish sums
 //                   the K-chunks in a fixed order and applies the epilogue,
 //                   so every weight byte is read once per call, serves both
@@ -147,10 +145,7 @@ constexpr int MV_TX = 8;    // threads across columns (VEC columns each)
 constexpr int MV_TY = 32;   // threads across the K-chunk
 constexpr int MV_KC = 128;  // K rows per block
 
-enum Epilogue {
-  EPI_STORE = 0, EPI_STORE_F32 = 1, EPI_RESID = 2, EPI_SWIGLU = 3, EPI_SCALED_RESID = 4,
-  EPI_BIAS = 5, EPI_BIAS_GELU = 6, EPI_BIAS_SCALED_RESID = 7
-};
+enum Epilogue { EPI_STORE = 0, EPI_STORE_F32 = 1, EPI_RESID = 2, EPI_SWIGLU = 3 };
 
 // PDL (the slow step only): the block loads its weights, lets the next
 // launch start, then waits for the previous launch before it reads x, so
@@ -159,8 +154,7 @@ template <typename W, int R, int EPI, bool PDL = false>
 __global__ void __launch_bounds__(MV_TX * MV_TY)
 matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
               const W* __restrict__ wa, const W* __restrict__ wb, int K, int N,
-              float* __restrict__ partials, int* __restrict__ counters, void* out,
-              const W* __restrict__ scale, const W* __restrict__ bias) {
+              float* __restrict__ partials, int* __restrict__ counters, void* out) {
   constexpr int VEC = Vec<W>::N;
   constexpr int TCOLS = MV_TX * VEC;
   constexpr int NMAT = EPI == EPI_SWIGLU ? 2 : 1;
@@ -285,18 +279,6 @@ matvec_kernel(const W* __restrict__ x, const W* __restrict__ norm_w, float eps,
     } else if constexpr (EPI == EPI_RESID) {
       W* h = static_cast<W*>(out);
       h[o] = from_f<W>(to_f<W>(h[o]) + rnd<W>(s[0]));
-    } else if constexpr (EPI == EPI_SCALED_RESID) {
-      W* h = static_cast<W*>(out);
-      h[o] = from_f<W>(to_f<W>(h[o]) + rnd<W>(to_f<W>(scale[n]) * rnd<W>(s[0])));
-    } else if constexpr (EPI == EPI_BIAS) {
-      static_cast<W*>(out)[o] = from_f<W>(s[0] + to_f<W>(bias[n]));
-    } else if constexpr (EPI == EPI_BIAS_GELU) {
-      const float a = rnd<W>(s[0] + to_f<W>(bias[n]));
-      static_cast<W*>(out)[o] = from_f<W>(a * 0.5f * (1.f + erff(a * 0.70710678118654752f)));
-    } else if constexpr (EPI == EPI_BIAS_SCALED_RESID) {
-      W* h = static_cast<W*>(out);
-      const float y = rnd<W>(s[0] + to_f<W>(bias[n]));
-      h[o] = from_f<W>(to_f<W>(h[o]) + rnd<W>(to_f<W>(scale[n]) * y));
     } else {
       const float a = rnd<W>(s[0]);
       const float silu = a / (1.f + expf(-a));
@@ -316,27 +298,26 @@ inline size_t matvec_tiles(int N) {
 template <typename W, int R, int EPI, bool PDL = false>
 inline cudaError_t launch_matvec(const W* x, const W* norm_w, float eps, const W* wa,
                                  const W* wb, int K, int N, float* partials,
-                                 int* counters, void* out, cudaStream_t st,
-                                 const W* scale = nullptr, const W* bias = nullptr) {
+                                 int* counters, void* out, cudaStream_t st) {
   dim3 grid((unsigned)matvec_tiles<W>(N), (unsigned)((K + MV_KC - 1) / MV_KC),
             EPI == EPI_SWIGLU ? 2 : 1);
   dim3 block(MV_TX, MV_TY);
   if constexpr (PDL) {
     const cudaError_t e = launch_pdl(matvec_kernel<W, R, EPI, true>, grid, block, st, x,
-                                     norm_w, eps, wa, wb, K, N, partials, counters, out,
-                                     scale, bias);
+                                     norm_w, eps, wa, wb, K, N, partials, counters, out);
     if (e != cudaSuccess) return e;
   } else {
     matvec_kernel<W, R, EPI><<<grid, block, 0, st>>>(x, norm_w, eps, wa, wb, K, N,
-                                                     partials, counters, out, scale, bias);
+                                                     partials, counters, out);
   }
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// persistent kernels (fast_decode.cu, wt_stream.cu): one cooperative launch,
-// one block of PK_THREADS per SM, phases separated by grid barriers; a block
-// owns whole output columns (16-byte units of packed weights) of each phase
+// persistent kernels (fast_decode.cu, wt_stream.cu, convnext_enc.cu): one
+// cooperative launch, one block of PK_THREADS per SM, phases separated by
+// grid barriers; a block owns whole output columns (16-byte units of packed
+// weights) of each phase
 // ---------------------------------------------------------------------------
 
 constexpr int PK_THREADS = 512;

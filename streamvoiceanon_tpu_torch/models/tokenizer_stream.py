@@ -334,8 +334,9 @@ def encode_stream(params: Dict, cfg: TokenizerConfig, state: TokenizerStreamStat
                   consts: dict) -> Tuple[TokenizerStreamState, torch.Tensor]:
     """(state, (B, k*2048) samples) -> (state', (B, k) int32 content tokens).
 
-    A packed front state needs the packed weights, `params["enc_packed"]`
-    (`params.Converter` packs them once)."""
+    A packed front state needs the packed weights, `params["enc_packed"]`,
+    and on the card their unit-packed matrices, `params["enc_units"]`
+    (`params.Converter` packs both once)."""
     mel_state, mel = mel_stream(state.mel, wav_chunk, cfg.mel, consts)
     if not isinstance(state.backbone, encops.PackedEncState):
         bb_state, z, new_down = _encode_front_dict(params, cfg, state, mel)
@@ -343,7 +344,8 @@ def encode_stream(params: Dict, cfg: TokenizerConfig, state: TokenizerStreamStat
         if "enc_packed" not in params:
             raise ValueError("encode_stream: a packed front state needs params['enc_packed'] "
                              "(ops/convnext_enc.packed_weights)")
-        bb_state, z = encops.encoder_front_step(params["enc_packed"], state.backbone, mel, cfg)
+        bb_state, z = encops.encoder_front_step(params["enc_packed"], state.backbone, mel, cfg,
+                                                units=params.get("enc_units"))
         new_down = ()
     else:  # batched: unpack -> dict path -> repack
         bb, dn = encops.unpack_enc_state(state.backbone, cfg)

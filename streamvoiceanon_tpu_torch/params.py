@@ -19,7 +19,8 @@ transformer's).  A `Converter` packs, once, the weights of the fused
 kernels its program set runs: with `HiFiGANConfig.use_pallas_stream` the
 head's (`vocoder_params["head_packed"]`), with
 `TokenizerConfig.use_pallas_encoder` the ConvNeXt front's
-(`tokenizer_params["enc_packed"]`).
+(`tokenizer_params["enc_packed"]`, and beside it its matrices unit-packed
+for the front kernel, `tokenizer_params["enc_units"]`).
 """
 
 from __future__ import annotations
@@ -188,10 +189,11 @@ class Converter:
         lack them (also for a converter re-used under another program set
         through `dataclasses.replace`)."""
         tcfg, hcfg = self.cfg.tokenizer, self.cfg.vocoder.head
-        if tcfg.use_pallas_encoder and "enc_packed" not in self.tokenizer_params:
-            self.tokenizer_params = {**self.tokenizer_params,
-                                     "enc_packed": encops.packed_weights(self.tokenizer_params,
-                                                                         tcfg)}
+        if tcfg.use_pallas_encoder and "enc_units" not in self.tokenizer_params:
+            pw = (self.tokenizer_params.get("enc_packed")
+                  or encops.packed_weights(self.tokenizer_params, tcfg))
+            self.tokenizer_params = {**self.tokenizer_params, "enc_packed": pw,
+                                     "enc_units": encops.unit_weights(pw)}
         if hcfg.use_pallas_stream and "head_packed" not in self.vocoder_params:
             self.vocoder_params = {**self.vocoder_params,
                                    "head_packed": headops.packed_weights(

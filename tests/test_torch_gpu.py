@@ -168,11 +168,46 @@ TINY_FRONT = C.replace(C.TokenizerConfig(), quantizer=C.BSQConfig(input_dim=32),
 @pytest.mark.gpu
 @pytest.mark.parametrize("size", ["full", "tiny"])
 def test_front_kernel_matches_plain(size):
-    """Over 6 chunks, state carried: at the published width and at a tiny
-    front with several blocks per stage."""
+    """Over 6 chunks, state carried, the kept scratch NaN before chunk 3: at
+    the published width and at a tiny front with several blocks per
+    stage."""
     _need_card()
     tcfg = C.all_five(C.PipelineConfig()).tokenizer if size == "full" else TINY_FRONT
     assert chip_smoke.compare_front(tcfg, "cuda", 6, True) <= chip_smoke.TOL
+
+
+@pytest.mark.gpu
+def test_front_is_one_device_launch_a_call():
+    """torch.profiler sees one device launch a call of the front at the
+    published width (checked inside `front_breakdown`), and its timeline
+    has the 46 phases of `phases`."""
+    _need_card()
+    out = chip_smoke.front_breakdown(C.all_five(C.PipelineConfig()).tokenizer, "cuda", n=5)
+    assert out["launches"] == 1 and len(out["phases"]["work_us"]) == 46
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["full", "tiny"])
+def test_front_timeline_phases_are_separated_by_grid_barriers(size):
+    """Every block stamps each phase, entry before its product's start (where
+    it owns columns) before exit, and no block enters a phase before every
+    block has left the one before."""
+    _need_card()
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import (
+        encoder_front_step_timeline, phases, work_plan)
+
+    tcfg = C.all_five(C.PipelineConfig()).tokenizer if size == "full" else TINY_FRONT
+    pw, units = chip_smoke.front_weights(tcfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device="cuda")
+    t = encoder_front_step_timeline(pw, chip_smoke.front_state(tcfg, "cuda", g), mel, tcfg,
+                                    units).cpu().numpy()
+    assert t.shape == (len(phases(tcfg)), t.shape[1], 3)
+    owns = work_plan(tcfg, t.shape[1])[:, :, 1].T > 0
+    assert (t[:, :, [0, 2]] > 0).all() and ((t[:, :, 1] > 0) == owns).all()
+    start = np.where(owns, t[:, :, 1], t[:, :, 0])
+    assert (start >= t[:, :, 0]).all() and (t[:, :, 2] >= start).all()
+    assert (t[1:, :, 0].min(axis=1) >= t[:-1, :, 2].max(axis=1)).all()
 
 
 @pytest.mark.gpu
