@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (streamvoiceanon_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --breakdown          # phase 2's breakdowns alone
+    python3 chip_smoke.py --session per_head_decode --chunks 40
 
 Phases, each reported on its own lines:
 
@@ -31,10 +33,13 @@ Phases, each reported on its own lines:
      carrying its own packed state, float32: max abs error <= 1e-3 over z
      and every packed buffer; before chunk 4 the kernel's kept scratch is
      filled with NaN, which must not reach any output;
-   - the per-head decode attention (12 heads x 64, 2 new rows, 2048 cache
-     rows) at pos 0, 1000 and 2046, float32: max abs error <= 1e-3 over
-     the output and both caches; bf16 is reported; cache rows >= pos + 2
-     poisoned with NaN must leave the output finite and unchanged;
+   - the per-head decode attention (12, 48 and 96 heads x 64: batch 1, 4
+     and 8; 2 new rows, 2048 cache rows) at pos 0, 1, its split edges near
+     the start and near 1000, 1000 and 2046: caches equal, the output
+     within 1e-4 in float32 and within one bf16 ulp plus 1e-4 in bf16;
+     cache rows >= pos + 2 poisoned with NaN must leave the output finite
+     and unchanged, and the kernel's kept partials are filled with NaN
+     before the middle position;
    - for each bf16 token or code that differs from the plain version, the
      plain race's lead of its choice over the kernel's (in logit units),
      beside the largest logit difference kernel against plain;
@@ -53,10 +58,18 @@ Phases, each reported on its own lines:
    phases split into work and barrier wait by the card's global timer;
    for the ConvNeXt front (float32, T0 = 4) the same (`front_breakdown`:
    one device launch a call, its 46 phases grouped by kind and place);
+   for the decode attention (bf16, 12 heads at pos 1000 and 96 at 1600)
+   the same (`attn_breakdown`: one device launch a call, its device time
+   at the planned split size against other split sizes, and the wrapper's
+   host time against its C entry point's), then its kernel ms by batch 1,
+   4, 8 x
+   pos 150, 1000, 1600; `--breakdown` runs against whatever package sits
+   beside the script, so a copy of it in an earlier tree times that tree;
    then kernel and plain times
    (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
-   time the card could take for the same work, and for the attention the
-   time of `F.scaled_dot_product_attention` over the valid rows;
+   time the card could take for the same work, and for the attention (at
+   batch 1, 4, 8 x pos 150, 1000, 1600) the time of
+   `F.scaled_dot_product_attention` over the valid rows;
 3. the main path, `tpu_optimized` (four kernels): a full-width
    StreamSession from seeded random weights (LM weights and KV cache in
    bf16, the tokenizer and vocoder in float32) streams 40 chunks through
@@ -68,7 +81,13 @@ Phases, each reported on its own lines:
    split: `fast_slow_config` (the LM kernels only, 12 chunks), `all_five`
    (also the ConvNeXt front kernel, 16 chunks: front launches = tokens)
    and `per_head_decode` (the per-head KV cache, 16 chunks: 12 attention
-   launches a frame, no slow step);
+   launches a frame, no slow step); then the batched decode: the
+   dual-AR frame at batch 4 (`arvc.prefill_prompt` to pos 1002, 16 greedy
+   frames of `arvc.decode_one` under `per_head_decode`: 12 attention
+   launches a frame, no slow-step or fast-loop launch), each frame also
+   from a copy of the state under `PipelineConfig()`'s plain flags; tokens
+   and codes agree up to bf16 flips that logit noise explains (at least
+   90 %); frame ms p50/p90 of both;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
    session that runs it), the card line, and as the last line
    {"ok": true, "device": {...}}.
@@ -95,6 +114,10 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 RING_COUNTS = (0, 1, 511, 512, 1000, 3583, 3584)
 ATTN_POS = (0, 1000, 2046)
+ATTN_HEADS = (12, 48, 96)  # batch 1, 4 and 8 of the dual-AR's 12 heads
+ATTN_TIME_BATCHES = (1, 4, 8)
+ATTN_TIME_POS = (150, 1000, 1600)
+ATTN_TOL = 1e-4  # ops/attention.py: the kernel's tolerance against its plain version
 # the slow step's attention takes its rows in runs of 64 (float32) or 128
 # (bf16) rows a block: positions at, around and between those edges
 SLOW_POS = (0, 1, 62, 63, 64, 65, 126, 127, 128, 129, 1000, 2046)
@@ -837,6 +860,118 @@ def front_breakdown(tcfg, device, n: int = 30):
     return out
 
 
+def attn_breakdown(dcfg, device, n: int = 30):
+    """The decode attention (bf16 cache) at batch 1 and pos 1000 (12 heads)
+    and batch 8 and pos 1600 (96 heads): its CUDA-event time a call, the
+    host's time to enqueue one, its time replayed from a CUDA graph, and
+    from torch.profiler its device launches a call (must be one) and
+    device time; where the package has `split_plan`, the planned split
+    size against others (`attn_split_times`); then kernel times over
+    ATTN_TIME_BATCHES x ATTN_TIME_POS.
+    Runs against whatever package sits beside this script, so an earlier
+    tree's kernel is timed the same way."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+
+    g = torch.Generator(device=device).manual_seed(33)
+    D, S, T = dcfg.head_dim, dcfg.max_seq_len, 2
+    out = {}
+    for B, pos in ((1, 1000), (8, 1600)):
+        H = B * dcfg.n_head
+        q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, torch.bfloat16, g)
+        call = lambda: decode_attention(q, kn, vn, kc, vc, pos)
+        call_ms, host_ms, graph_ms, graph_note = call_times(call, n)
+        m = 10
+        launches, by_kernel, window = profile_launches(call, lambda c: c == 1, m)
+        if launches != 1:
+            raise AssertionError(f"decode attention: {launches:g} device launches a call, "
+                                 "expected one: " + ", ".join(
+                                     f"{k} {c:g}" for k, (c, _) in by_kernel.items()))
+        device_ms = sum(ms for _, ms in by_kernel.values())
+        log(f"[2] decode attention bf16 {H} heads pos {pos}: {call_ms:.4f} ms a call (CUDA "
+            f"events), {host_ms:.4f} ms to enqueue one (host clock, 10 calls); {graph_note}; "
+            f"torch.profiler over {m} calls (window {window + 1} of at most 3): "
+            f"{launches:g} device launches a call, {device_ms:.4f} ms of device time a "
+            "call; " + ", ".join(f"{k} {c:g} launches {ms:.4f} ms"
+                                 for k, (c, ms) in by_kernel.items()))
+        out[H, pos] = {"ms": call_ms, "host_ms": host_ms, "graph_ms": graph_ms,
+                       "launches": launches, "device_ms": device_ms}
+        del q, kn, vn, kc, vc
+    from streamvoiceanon_tpu_torch.ops import attention as att
+
+    if hasattr(att, "split_plan"):  # this tree's split kernel: the plan against others
+        for H, pos in ((12, 1000), (96, 1600)):
+            out["splits", H, pos] = attn_split_times(H, pos, D, S, device, g)
+    grid = {}
+    for B in ATTN_TIME_BATCHES:
+        H = B * dcfg.n_head
+        q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, torch.bfloat16, g)
+        for pos in ATTN_TIME_POS:
+            call = lambda: decode_attention(q, kn, vn, kc, vc, pos)
+            runs = [cuda_ms(call, 30), cuda_ms(call, 30)]
+            grid[B, pos] = {"ms": min(runs), **attn_bound(H, T, D, pos, 2)}
+    log("[2] decode attention bf16 kernel ms (best of two runs of 30 calls) / bound ms "
+        "by batch x pos: " + ", ".join(
+            f"B {B} ({B * dcfg.n_head} heads) pos {pos} {t['ms']:.4f} / {t['bound_ms']:.4f}"
+            for (B, pos), t in grid.items()))
+    out["grid"] = grid
+    return out
+
+
+def attn_split_times(H: int, pos: int, D: int, S: int, device, g, reps: int = 20):
+    """The split kernel's device ms a launch (a CUDA graph of `reps`
+    back-to-back launches, best of three replays) at `split_plan`'s rows a
+    split and at other splits a head: one, one wave of SMs, twice the
+    plan's, the most the card holds at once; and the host's us a call for
+    the whole wrapper against its C entry point alone (2000 calls)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops import attention as att
+
+    dt, T, P = torch.bfloat16, 2, pos + 2
+    q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, dt, g)
+    dev = q.device
+    n_sm = att.sm_count(dev)
+    tile = att.lane_groups(D, dt)
+    plan = att.split_plan(H, P, D, dt, n_sm)
+    part = torch.empty(H * 64 * T * (D + 2), dtype=torch.float32, device=dev)
+    tickets = torch.zeros(H, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+
+    def args(R, ns):  # on the stream current at the call (a graph captures its own)
+        return (1, q.data_ptr(), kn.data_ptr(), vn.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                out.data_ptr(), part.data_ptr(), tickets.data_ptr(), H, T, S, D, pos, R, ns,
+                float(D) ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
+
+    res = {}
+    for n in sorted({1, -(-n_sm // H), plan[1], 2 * plan[1], att.max_splits(H, n_sm)}):
+        R = att._cdiv(att._cdiv(P, n), tile) * tile
+        ns = att._cdiv(P, R)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                if att._kernel()(*args(R, ns)) != 0:
+                    raise RuntimeError(f"decode attention: launch at R {R} refused")
+        res[R, ns] = min(cuda_ms(graph.replay, 10) for _ in range(3)) / reps
+        del graph
+    host = {}
+    for name, call in (("wrapper", lambda: att.decode_attention(q, kn, vn, kc, vc, pos)),
+                       ("C entry alone", lambda: att._kernel()(*args(*plan)))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            call()
+        host[name] = 1e6 * (time.perf_counter() - t0) / 2000
+        torch.cuda.synchronize()
+    log(f"[2] decode attention bf16 {H} heads pos {pos}, device ms a launch (CUDA graph of "
+        f"{reps}) by rows a split R and splits (plan R {plan[0]}, {plan[1]} splits): "
+        + ", ".join(f"R {R} x {n} ({H * n} blocks) {ms:.4f}" for (R, n), ms in res.items())
+        + "; host us a call: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    return {"splits": res, "host_us": host}
+
+
 def front_phase_split(stamps, phase_list):
     """Mean times of the front's phases grouped by kind and place (the stem;
     P, Q of each stage and each downsample block; each transition M and
@@ -1116,32 +1251,72 @@ def attn_inputs(H: int, T: int, D: int, S: int, device, dtype, g):
     return r(H, T, D), r(H, T, D), r(H, T, D), r(H, S, D), r(H, S, D)
 
 
+def attn_positions(H: int, T: int, D: int, S: int, dtype, n_sm: int):
+    """0, 1, positions at the kernel's split edges (the rows end at a
+    split's last or first row, or the new rows straddle two splits) near
+    the start and near 1000, 1000 and S - T (those that fit S rows)."""
+    from streamvoiceanon_tpu_torch.ops.attention import split_plan
+
+    def edges(start, n):
+        out = []
+        for pos in range(start, S - T + 1):
+            R, _ = split_plan(H, pos + T, D, dtype, n_sm)
+            if (pos + T) % R in (0, 1) or (T == 2 and pos % R == R - 1):
+                out.append(pos)
+                if len(out) == n:
+                    break
+        return out
+
+    near = {0, 1, *edges(2, 3), *edges(1000, 2), 1000, S - T}
+    return sorted(p for p in near if p <= S - T)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
 def compare_attention(H: int, T: int, D: int, S: int, device, dtype, positions,
                       check: bool):
     """The decode attention against its plain version at each position:
     max abs error over the output and both whole caches.  Rows >= pos + T
-    poisoned with NaN must leave the kernel's output finite and unchanged
-    (checked at every type)."""
+    poisoned with NaN must leave the kernel's output finite and unchanged,
+    and before the middle position the kernel's kept partials are filled
+    with NaN (both checked at every type).  With `check`: the caches equal,
+    the output within ATTN_TOL (float32) or one bf16 ulp of the larger of
+    the two plus ATTN_TOL (bf16; see ops/attention.py)."""
     import torch
 
-    from streamvoiceanon_tpu_torch.ops.attention import (
-        decode_attention, decode_attention_plain)
+    from streamvoiceanon_tpu_torch.ops import attention as att
 
     g = torch.Generator(device=device).manual_seed(29)
     worst = 0.0
-    for pos in positions:
+    for i, pos in enumerate(positions):
         q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, dtype, g)
-        ko = decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos)
-        po = decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
+        if i == len(positions) // 2 and torch.device(device).type == "cuda":
+            dev = torch.device(device)
+            att.kept_scratch(H, T, D, dtype, dev, att.sm_count(dev))[0].fill_(float("nan"))
+        ko = att.decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos)
+        po = att.decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos)
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ko, po))
         kp, vp = kc.clone(), vc.clone()
         kp[:, pos + T :], vp[:, pos + T :] = float("nan"), float("nan")
-        poisoned = decode_attention(q, kn, vn, kp, vp, pos)[0]
+        poisoned = att.decode_attention(q, kn, vn, kp, vp, pos)[0]
         if not (torch.isfinite(poisoned).all() and torch.equal(poisoned, ko[0])):
-            raise AssertionError(f"decode attention at pos {pos} read a stale row")
+            raise AssertionError(f"decode attention at {H} heads, pos {pos} read a stale "
+                                 "row")
         worst = max(worst, err)
-        if check and not err <= TOL:
-            raise AssertionError(f"decode attention disagrees at pos {pos}: err {err:.3e}")
+        if not check:
+            continue
+        a, b = ko[0].float(), po[0].float()
+        room = ATTN_TOL + (bf16_ulp(torch.maximum(a.abs(), b.abs()))
+                           if dtype == torch.bfloat16 else 0.0)
+        if not (torch.equal(ko[1], po[1]) and torch.equal(ko[2], po[2])
+                and bool(((a - b).abs() <= room).all())):
+            raise AssertionError(f"decode attention disagrees at {H} heads, pos {pos} "
+                                 f"({dtype}): err {err:.3e}")
     return worst
 
 
@@ -1161,17 +1336,62 @@ def front_flops(tcfg, T0: int) -> int:
     return 2 * f
 
 
-def time_front_attention(tcfg, dcfg, device, pos: int):
-    """Kernel, plain and bound times of the front (float32, T0 = 4, as on
-    the main path) and of the decode attention (bf16 cache at pos, the
-    dual-AR's heads and cache rows), and for the attention the time of
-    `F.scaled_dot_product_attention` over the valid rows after the two
-    row copies."""
+def attn_bound(H: int, T: int, D: int, pos: int, es: int):
+    """The decode attention's bound: q and the new rows read, the output
+    written, the old rows < pos of both caches read, the new rows written;
+    float32 products and sums."""
+    nbytes_ = 4 * H * T * D * es + 2 * H * pos * D * es + 2 * H * T * D * es
+    return bound(nbytes_, 2 * 2 * H * T * (pos + T) * D, FP32_FLOPS)
+
+
+def time_attention(dcfg, device, batches, positions):
+    """The decode attention at each batch (B x the dual-AR's heads, bf16
+    cache of its rows) and pos: kernel and plain times (turns plain,
+    kernel, kernel, plain), the time of `F.scaled_dot_product_attention`
+    over the valid rows after the two row copies, and the bound."""
     import torch
     import torch.nn.functional as F
 
     from streamvoiceanon_tpu_torch.ops.attention import (
         decode_attention, decode_attention_plain)
+
+    g = torch.Generator(device=device).manual_seed(31)
+    D, S, T = dcfg.head_dim, dcfg.max_seq_len, 2
+    out = {}
+    for B in batches:
+        H = B * dcfg.n_head
+        q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, torch.bfloat16, g)
+        for pos in positions:
+            P_ = pos + T
+            mask = (torch.arange(P_, device=device)[None, :]
+                    <= (pos + torch.arange(T, device=device))[:, None])
+
+            def library():
+                kc[:, pos:P_] = kn
+                vc[:, pos:P_] = vn
+                return F.scaled_dot_product_attention(q, kc[:, :P_], vc[:, :P_],
+                                                      attn_mask=mask)
+
+            kern = lambda: decode_attention(q, kn, vn, kc, vc, pos)
+            plain = lambda: decode_attention_plain(q, kn, vn, kc, vc, pos)
+            p1 = cuda_ms(plain, 5)
+            k1 = cuda_ms(kern, 30)
+            k2 = cuda_ms(kern, 30)
+            p2 = cuda_ms(plain, 5)
+            out[B, pos] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ms_runs": [k1, k2],
+                           "plain_runs": [p1, p2],
+                           "library_ms": min(cuda_ms(library, 30), cuda_ms(library, 30)),
+                           **attn_bound(H, T, D, pos, 2)}
+        del q, kn, vn, kc, vc
+    return out
+
+
+def time_front_attention(tcfg, dcfg, device):
+    """Kernel, plain and bound times of the front (float32, T0 = 4, as on
+    the main path), and the decode attention's at ATTN_TIME_BATCHES x
+    ATTN_TIME_POS (`time_attention`)."""
+    import torch
+
     from streamvoiceanon_tpu_torch.ops.convnext_enc import (
         encoder_front_step, encoder_front_step_plain)
 
@@ -1179,30 +1399,14 @@ def time_front_attention(tcfg, dcfg, device, pos: int):
     g = torch.Generator(device=device).manual_seed(31)
     st = front_state(tcfg, device, g)
     mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
-    H, D, S, T = dcfg.n_head, dcfg.head_dim, dcfg.max_seq_len, 2
-    q, kn, vn, kc, vc = attn_inputs(H, T, D, S, device, torch.bfloat16, g)
-    P_ = pos + T
-    mask = (torch.arange(P_, device=device)[None, :]
-            <= (pos + torch.arange(T, device=device))[:, None])
-
-    def library():
-        kc[:, pos:P_] = kn
-        vc[:, pos:P_] = vn
-        return F.scaled_dot_product_attention(q, kc[:, :P_], vc[:, :P_], attn_mask=mask)
-
-    out = {}
-    for name, kern, plain in (
-            ("enc", lambda: encoder_front_step(pw, st, mel, tcfg, units=units),
-             lambda: encoder_front_step_plain(pw, st, mel, tcfg)),
-            ("attn", lambda: decode_attention(q, kn, vn, kc, vc, pos),
-             lambda: decode_attention_plain(q, kn, vn, kc, vc, pos))):
-        p1 = cuda_ms(plain, 5)
-        k1 = cuda_ms(kern, 30)
-        k2 = cuda_ms(kern, 30)
-        p2 = cuda_ms(plain, 5)
-        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ms_runs": [k1, k2],
-                     "plain_runs": [p1, p2]}
-    out["attn"]["library_ms"] = min(cuda_ms(library, 30), cuda_ms(library, 30))
+    kern = lambda: encoder_front_step(pw, st, mel, tcfg, units=units)
+    plain = lambda: encoder_front_step_plain(pw, st, mel, tcfg)
+    p1 = cuda_ms(plain, 5)
+    k1 = cuda_ms(kern, 30)
+    k2 = cuda_ms(kern, 30)
+    p2 = cuda_ms(plain, 5)
+    out = {"enc": {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ms_runs": [k1, k2],
+                   "plain_runs": [p1, p2]}}
     # front: every packed weight once, the state in and out, mel and z
     w = [t for k_, t in pw.items() if torch.is_tensor(t)]
     for grp in (pw["stages"], pw["mids"], pw["downs"]):
@@ -1212,11 +1416,8 @@ def time_front_attention(tcfg, dcfg, device, pos: int):
     front_bytes = (nbytes(*w) + 2 * nbytes(*front_leaves(st)) + nbytes(mel)
                    + tcfg.quantizer.input_dim * 4)
     out["enc"].update(bound(front_bytes, front_flops(tcfg, 4), FP32_FLOPS))
-    # attention: q and the new rows read and the output written, the old
-    # rows < pos of both caches read, the new rows written; float32 math
-    es = 2
-    attn_bytes = 4 * H * T * D * es + 2 * H * pos * D * es + 2 * H * T * D * es
-    out["attn"].update(bound(attn_bytes, 2 * 2 * H * T * P_ * D, FP32_FLOPS))
+    out["attn_grid"] = time_attention(dcfg, device, ATTN_TIME_BATCHES, ATTN_TIME_POS)
+    out["attn"] = out["attn_grid"][1, 1000]
     return out
 
 
@@ -1454,6 +1655,137 @@ def drive(name, sess, rng, n_chunks: int, expect, wrappers):
     return counts, sess.refill_count - r0
 
 
+@contextlib.contextmanager
+def recorded_samples():
+    """Record (logits, tokens) of every `sample_token` call the dual-AR
+    frame decode makes (the semantic token, then one a codebook step on the
+    plain codebook loop), in call order."""
+    from streamvoiceanon_tpu_torch.models import dual_ar
+
+    rec, orig = [], dual_ar.sample_token
+
+    def sample(logits, *a, **kw):
+        r = orig(logits, *a, **kw)
+        rec.append((logits.detach().float().clone(), r[0] if isinstance(r, tuple) else r))
+        return r
+
+    dual_ar.sample_token = sample
+    try:
+        yield rec
+    finally:
+        dual_ar.sample_token = orig
+
+
+def batched_decode(ap, acfg, device, wrappers, batch: int = 4, Tp: int = 483,
+                   delay: int = 2, frames: int = 16):
+    """The dual-AR frame decode at batch `batch` at full width (bf16
+    weights and cache, 2048 cache rows): `arvc.prefill_prompt` of a Tp-frame
+    prompt and the delay prefill (pos 33 + 2 Tp + 2 delay - 1, about 1000),
+    then `frames` greedy frames of `arvc.decode_one` under `per_head_decode`
+    (the decode attention over batch x 12 heads, 12 launches a frame; the
+    slow step and the fast loop take batch 1 only, so neither launches).
+    Each frame also runs from a copy of the state under `PipelineConfig()`'s
+    flags (every layer plain).  Semantic tokens and codes must agree up to
+    bf16 flips: where the two differ, the plain choice's lead in the plain
+    logits must be at most twice the largest logit difference of that step
+    (a flip that logit noise explains); a row's codes are compared up to
+    its first flip (after it the steps have other inputs); at least 90 % of
+    what is compared must agree.  `ap` and `acfg` are the ARVC weights and
+    configuration, whose decoder flags this sets.  Returns (launch counts,
+    stats)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.models import arvc
+
+    flags = lambda **kw: C.replace(acfg, decoder=C.replace(acfg.decoder, **kw))
+    kcfg = flags(use_pallas_slow_decode=False, use_pallas_decode=True,
+                 use_pallas_fast_decode=True)
+    pcfg = flags(use_pallas_slow_decode=False, use_pallas_decode=False,
+                 use_pallas_fast_decode=False)
+    d = kcfg.decoder
+    wd = ap["embedding"].dtype
+    sync = torch.cuda.synchronize if str(device).startswith("cuda") else (lambda: None)
+    rng = np.random.default_rng(23)
+    ints = lambda hi, *shape: torch.from_numpy(rng.integers(0, hi, shape)).to(device)
+    ref_tok, src = ints(d.vocab_size, batch, Tp), ints(d.vocab_size, batch, delay + frames)
+    ref_codes = ints(d.codebook_size, batch, d.num_codebooks, Tp)
+    style = torch.from_numpy(rng.standard_normal((batch, kcfg.style_dim))).to(device, wd)
+    timbre = torch.from_numpy(rng.standard_normal((batch, 32, kcfg.context_dim))).to(
+        device, wd)
+    st = arvc.prefill_prompt(ap, kcfg, ref_tok, ref_codes, style, timbre, delay,
+                             cache_dtype=torch.bfloat16)
+    st = arvc.prefill_src_condition4delay(ap, kcfg, st, src[:, :delay], delay)
+    pos0 = st.decode.pos
+    greedy = C.SamplingConfig(greedy=True)
+    stats = {"compared": 0, "agree": 0, "flips": [], "logit_diff": 0.0}
+    k_ms, p_ms = [], []
+
+    def compare(kr, pr, f, step):
+        (lk, tk), (lp, tp) = kr, pr
+        diff = (lk - lp).abs().amax(dim=-1)
+        stats["logit_diff"] = max(stats["logit_diff"], float(diff.max()))
+        same = tk == tp
+        stats["compared"] += len(same)
+        stats["agree"] += int(same.sum())
+        for b in (~same).nonzero()[:, 0].tolist():
+            want, got = int(tp[b]), int(tk[b])
+            gap = float(lp[b, want] - lp[b, got])
+            stats["flips"].append((f, b, step, gap, float(diff[b])))
+            if not gap <= 2 * float(diff[b]):
+                raise AssertionError(
+                    f"batched decode frame {f} row {b} step {step}: token {got} against "
+                    f"{want}, the plain lead {gap:.4g} beyond twice the logit difference "
+                    f"{float(diff[b]):.4g}")
+        return same
+
+    for w in wrappers.values():
+        w.launches = 0
+    for f in range(frames):
+        tok = src[:, delay + f : delay + f + 1]
+        dcopy = st.decode._replace(k_cache=st.decode.k_cache.clone(),
+                                   v_cache=st.decode.v_cache.clone())
+        sync()
+        with recorded_samples() as prec:
+            t0 = time.perf_counter()
+            arvc.decode_one(ap, pcfg, st._replace(decode=dcopy), tok, greedy)
+            sync()
+            p_ms.append(1e3 * (time.perf_counter() - t0))
+        with recorded_samples() as krec:
+            t0 = time.perf_counter()
+            st, kcodes = arvc.decode_one(ap, kcfg, st, tok, greedy)
+            sync()
+            k_ms.append(1e3 * (time.perf_counter() - t0))
+        del dcopy
+        if len(krec) != 1 + d.num_codebooks or len(prec) != len(krec):
+            raise AssertionError(f"batched decode: {len(krec)} and {len(prec)} sampler "
+                                 "calls a frame")
+        if not (torch.isfinite(st.audio_emb.float()).all() and kcodes.shape == (
+                batch, d.num_codebooks) and int(kcodes.min()) >= 0
+                and int(kcodes.max()) < d.codebook_size):
+            raise AssertionError(f"batched decode frame {f}: codes {kcodes.tolist()}")
+        compare(krec[0], prec[0], f, "semantic")
+        live = torch.ones(batch, dtype=torch.bool, device=device)
+        for s in range(d.num_codebooks):
+            rows = live.nonzero()[:, 0]
+            if len(rows) == 0:
+                break
+            (lk, tk), (lp, tp) = krec[1 + s], prec[1 + s]
+            same = compare((lk[rows], tk[rows]), (lp[rows], tp[rows]), f, s)
+            live[rows[~same]] = False
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if counts != counts_of(attn=d.n_layer * frames):
+        raise AssertionError(f"batched decode: launch counts {counts}, expected "
+                             f"{counts_of(attn=d.n_layer * frames)}")
+    if stats["agree"] < 0.9 * stats["compared"]:
+        raise AssertionError(f"batched decode: {stats['agree']} of {stats['compared']} "
+                             "tokens and codes agree")
+    stats.update(pos=(pos0, st.decode.pos), kernel_ms=(np.percentile(k_ms, 50),
+                                                        np.percentile(k_ms, 90)),
+                 plain_ms=(np.percentile(p_ms, 50), np.percentile(p_ms, 90)))
+    return counts, stats
+
+
 def fmt_split(split) -> str:
     return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
@@ -1545,12 +1877,20 @@ def main() -> int:
     log(f"[2] ConvNeXt front over 8 chunks, state carried, the kept scratch NaN before "
         f"chunk 4: f32 max abs err "
         f"{st32['enc']['err']:.3e} (bound {TOL})")
-    ageo = (d.n_head, 2, d.head_dim, d.max_seq_len)
-    st32["attn"] = {"err": compare_attention(*ageo, device, torch.float32, ATTN_POS, True)}
-    attn16 = compare_attention(*ageo, device, torch.bfloat16, ATTN_POS, False)
-    log(f"[2] decode attention at pos {list(ATTN_POS)}: f32 max abs err "
-        f"{st32['attn']['err']:.3e} (bound {TOL}); bf16 max abs err {attn16:.3e} (reported); "
-        f"NaN rows >= pos + 2 never read")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    st32["attn"] = {"err": 0.0}
+    for H in ATTN_HEADS:
+        ageo = (H, 2, d.head_dim, d.max_seq_len)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            at = attn_positions(*ageo, dt, n_sm)
+            errs[dt] = compare_attention(*ageo, device, dt, at, True)
+        st32["attn"]["err"] = max(st32["attn"]["err"], errs[torch.float32])
+        log(f"[2] decode attention {H} heads at pos {at} (bf16's; float32's split edges "
+            f"differ): f32 max abs err {errs[torch.float32]:.3e} (bound {ATTN_TOL}), bf16 "
+            f"max abs err {errs[torch.bfloat16]:.3e} (bound one bf16 ulp + {ATTN_TOL}); "
+            "caches equal; NaN rows >= pos + 2 never read; kept partials NaN before the "
+            "middle position")
     # torch.profiler and the CUDA-graph capture run in a child process, so
     # that nothing they leave behind can touch phase 3's timing
     r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--breakdown"],
@@ -1565,10 +1905,10 @@ def main() -> int:
             f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B)")
     tk.update(time_ring_head(wcfg, hcfg, device, 1000))
-    tk.update(time_front_attention(tcfg, d, device, 1000))
+    tk.update(time_front_attention(tcfg, d, device))
     for name, what in (("slow", "bf16 pos 1000"), ("fast", "bf16"),
                        ("ring", "f32 count 1000"), ("head", "f32 T0 4"),
-                       ("enc", "f32 T0 4"), ("attn", "bf16 pos 1000")):
+                       ("enc", "f32 T0 4"), ("attn", "bf16 12 heads pos 1000")):
         t = tk[name]
         peak = f", peak {t['peak'] / 1e12:.0f} TFLOP/s" if "peak" in t else ""
         lib = f", library {t['library_ms']:.4f} ms" if "library_ms" in t else ""
@@ -1576,6 +1916,12 @@ def main() -> int:
             f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), plain {t['plain_ms']:.4f} ms"
             f"{lib}, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, "
             f"{t['flops']} flop{peak})")
+    log("[2] decode attention bf16 by batch x pos, kernel ms (runs) / plain / library / "
+        "bound: " + "; ".join(
+            f"B {B} ({B * d.n_head} heads) pos {pos} {t['ms']:.4f} ("
+            f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}) / {t['plain_ms']:.4f} / "
+            f"{t['library_ms']:.4f} / {t['bound_ms']:.4f} ({t['bytes']} B)"
+            for (B, pos), t in tk["attn_grid"].items()))
     log(f"[2] done in {time.time() - t0:.1f} s")
 
     # ---- phase 3: tpu_optimized, then three shorter sessions on its weights
@@ -1605,6 +1951,16 @@ def main() -> int:
         if own:  # the kernel this session adds: its launches are this run's
             launches[own] = counts[own]
 
+    counts, bst = batched_decode(cv.arvc_params, cfg.arvc, device, wrappers)
+    flips = "; ".join(f"frame {f} row {b} {k}: plain lead {gap:.4g}, logit difference "
+                      f"{ld:.4g}" for f, b, k, gap, ld in bst["flips"]) or "none"
+    log(f"[3] batched decode, batch 4, pos {bst['pos'][0]} to {bst['pos'][1]}, greedy: "
+        f"launches {counts}; per_head_decode frame ms p50 {bst['kernel_ms'][0]:.3f} p90 "
+        f"{bst['kernel_ms'][1]:.3f}; PipelineConfig() flags (plain) frame ms p50 "
+        f"{bst['plain_ms'][0]:.3f} p90 {bst['plain_ms'][1]:.3f}; tokens and codes agree "
+        f"{bst['agree']}/{bst['compared']}, largest logit difference "
+        f"{bst['logit_diff']:.4g}; flips: {flips}")
+
     # ---- phase 4
     kernels = []
     for key, name, src, rep in (
@@ -1633,8 +1989,8 @@ def main() -> int:
 
 def breakdown_main() -> int:
     """`python3 chip_smoke.py --breakdown`: phase 2's slow-step, fast-loop,
-    head, ring-step and front breakdowns alone (main runs them in a child
-    process)."""
+    head, ring-step, front and decode-attention breakdowns alone (main runs
+    them in a child process)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1650,8 +2006,42 @@ def breakdown_main() -> int:
     head_breakdown(cfg.vocoder.head, "cuda")
     ring_breakdown(cfg.tokenizer.transformer, "cuda")
     front_breakdown(C.all_five(C.PipelineConfig()).tokenizer, "cuda")
+    attn_breakdown(d, "cuda")
+    return 0
+
+
+def session_main(name: str, chunks: int) -> int:
+    """`python3 chip_smoke.py --session NAME [--chunks N]`: one phase-3
+    session alone (NAME a program set of `config`, e.g. per_head_decode),
+    warmed up by 4 chunks, then N chunks (default 40): chunk ms p50, p90
+    and mean, and the stage split.  Runs against whatever package sits
+    beside the script, so two trees' sessions can be interleaved."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from streamvoiceanon_tpu_torch import config as C
+
+    scfg = C.StreamConfig(max_prompt_frames=32, max_seq_frames=64, buffer_frames=8,
+                          delay=2)
+    sess, rng, _, _, _ = build_session(getattr(C, name)(C.PipelineConfig()), "cuda", scfg,
+                                       C.SamplingConfig(), torch.bfloat16, torch.bfloat16)
+    stream(sess, rng, 4)
+    times = stream(sess, rng, chunks)
+    tree = Path(__file__).resolve().parent.name
+    log(f"[3] {name} alone, {tree}: {chunks} chunks, chunk ms "
+        f"p50 {np.percentile(times, 50):.3f} p90 {np.percentile(times, 90):.3f} mean "
+        f"{np.mean(times):.3f}; stage medians over 10 chunks (synchronized): "
+        + fmt_split(stage_split(sess, rng, 10)))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(breakdown_main() if sys.argv[1:] == ["--breakdown"] else main())
+    argv = sys.argv[1:]
+    if argv == ["--breakdown"]:
+        sys.exit(breakdown_main())
+    if argv[:1] == ["--session"]:
+        sys.exit(session_main(argv[1], int(argv[3]) if argv[2:3] == ["--chunks"] else 40))
+    sys.exit(main())

@@ -135,12 +135,14 @@ class DualARConfig:
     # The frame decode's attention on the per-head update+attend kernel
     # (ops/attention.py), with a per-head (L, B, H, S, head_dim) KV cache
     # (the JAX package pads its head dim to 128 lanes; the port does not),
-    # then the output head and the windowed sampler.  Batch-1 MHA decode.
+    # then the output head and the windowed sampler.  Any batch (the kernel
+    # runs over B x n_head heads); MHA only, GQA raises.
     use_pallas_decode: bool = False
 
     # Run the 8-step fast codebook loop (4 fast layers, exact full-vocab
     # nucleus sampling, next-frame audio embedding) on its kernel
-    # (ops/fast_decode.py).  Batch 1 only.
+    # (ops/fast_decode.py).  Batch 1 and MHA; otherwise the loop runs plain,
+    # as the JAX package's XLA path.
     use_pallas_fast_decode: bool = False
 
     # Unroll factor of the JAX package's decode layer scan (unused here).
@@ -149,7 +151,9 @@ class DualARConfig:
     # Run the 12-layer two-token slow step (plus final norm, output head
     # and semantic sampling) on its kernel (ops/slow_decode.py).  Changes
     # the KV-cache layout to flat (L, B, S, n_head*head_dim) rows; prefill
-    # writes the same rows.  Batch-1 MHA decode only.
+    # writes the same rows.  The kernel runs at batch 1 with MHA and an
+    # untied head without bias; otherwise the layers run plain on the flat
+    # rows.
     use_pallas_slow_decode: bool = False
 
     def __post_init__(self):

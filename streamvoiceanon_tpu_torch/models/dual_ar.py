@@ -1,25 +1,34 @@
 """Dual-autoregressive token LM: prefill and the frame decode step, on
-either KV-cache layout.
+either KV-cache layout and at any batch.
 
 As `streamvoiceanon_tpu.models.dual_ar`.  A slow transformer (12 x 768)
 consumes the interleaved stream [speaker prefix (33) | (content_t,
 audio_{t-delay}) pairs] and a fast transformer (4 x 768) autoregresses over
 the 8 codec codebooks of each frame.  The cache layout follows the flags:
+flat (L, B, S, n_local_heads * head_dim) rows with `use_pallas_slow_decode`,
+per head (L, B, n_local_heads, S, head_dim) otherwise.  The JAX package
+pads the per-head cache's head dim to 128 lanes for its TPU kernel; the
+port keeps it unpadded.
 
-* `use_pallas_slow_decode`: flat (L, B, S, n_local_heads * head_dim) rows;
-  `decode_frame` runs the two-token slow step, the output head and the
-  exact full-vocabulary sampler on one kernel (ops/slow_decode.py);
-* otherwise per head, (L, B, n_local_heads, S, head_dim); with
-  `use_pallas_decode` `decode_frame` runs the layer loop here, each layer's
-  attention on the per-head decode kernel (ops/attention.py), then the
-  output head and the windowed sampler (ops/sampling.py), whose nucleus
-  truncations it counts in `DecodeState.trunc`.  The JAX package pads this
-  cache's head dim to 128 lanes for its TPU kernel; the port keeps it
-  unpadded.
+`decode_frame` dispatches as the JAX package does:
 
-Either way the 8-step fast codebook loop runs on its kernel
-(ops/fast_decode.py), and prefill writes the cache with plain PyTorch.
-`convert_cache_layout` moves a live cache between the two layouts.
+* the slow step (layers, output head and the exact full-vocabulary
+  sampler) runs on its kernel (ops/slow_decode.py) with
+  `use_pallas_slow_decode` at batch 1, MHA, an untied output head without
+  bias;
+* otherwise the layer loop runs here, each layer's attention on the
+  per-head decode kernel (ops/attention.py, over B x H heads) with
+  `use_pallas_decode` (MHA only: GQA raises, as in the JAX package), plain
+  on either layout without it; then the output head and the windowed
+  sampler (ops/sampling.py), row by row;
+* the 8-step fast codebook loop runs on its kernel (ops/fast_decode.py)
+  with `use_pallas_fast_decode` at batch 1 and MHA, otherwise as the JAX
+  package's XLA loop (`_fast_loop`): the fast layers over a fresh per-head
+  cache, the windowed sampler row by row.
+
+The windowed sampler's nucleus truncations add up in `DecodeState.trunc`.
+Prefill writes the cache with plain PyTorch; `convert_cache_layout` moves
+a live cache between the two layouts.
 
 The cache position is a host integer: the position trajectory of a
 stream is known in advance, so no device value is read back to schedule.
@@ -93,17 +102,20 @@ def convert_cache_layout(state: DecodeState, cfg: DualARConfig) -> DecodeState:
 
 
 def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
-                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
-                cfg: DualARConfig, kernel: bool = False) -> torch.Tensor:
-    """Layer l of the slow stack on x (B, T, dim) at positions pos..pos+T-1:
+                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, n_head: int,
+                n_local: int, head_dim: int, norm_eps: float,
+                kernel: bool = False) -> torch.Tensor:
+    """Layer l of a stack on x (B, T, dim) at positions pos..pos+T-1:
     writes the T roped K/V rows into the layer's caches in place, flat (B,
-    S, nl*hd) or per head (B, nl, S, hd), and attends causally over rows
-    < pos + T.  `kernel` (per-head cache, batch 1, MHA) runs the attention
-    on the decode-attention kernel with the JAX package's `use_pallas`
-    rounding: q, k, v in the cache dtype, the output rounded to it."""
+    S, n_local*head_dim) or per head (B, n_local, S, head_dim), and attends
+    causally over rows < pos + T.  `kernel` (per-head cache, MHA) runs the
+    attention on the decode-attention kernel over the B x n_head heads of
+    the cache viewed as (B * n_head, S, head_dim), with the JAX package's
+    `use_pallas` rounding: q, k, v in the cache dtype, the output rounded
+    to it."""
     B, T, dim = x.shape
-    H, nl, hd = cfg.n_head, cfg.n_local_heads, cfg.head_dim
-    h = rms_norm(x, lp["attention_norm"]["w"][l], cfg.norm_eps)
+    H, nl, hd = n_head, n_local, head_dim
+    h = rms_norm(x, lp["attention_norm"]["w"][l], norm_eps)
     qkv = h @ lp["wqkv"]["w"][l]
     q, k, v = torch.split(qkv, [H * hd, nl * hd, nl * hd], dim=-1)
     q = apply_rope(q.reshape(B, T, H, hd), freqs)
@@ -112,9 +124,14 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
     P = pos + T
     cd = k_cache.dtype
     if kernel:
-        heads = lambda t: t[0].transpose(0, 1).to(cd)  # (H, T, hd)
-        out, _, _ = decode_attention(heads(q), heads(k), heads(v), k_cache[0], v_cache[0], pos)
-        out = out.transpose(0, 1).reshape(1, T, H * hd).to(x.dtype)
+        if nl != H:
+            raise NotImplementedError("the decode-attention kernel takes MHA (no GQA)")
+        S = k_cache.shape[-2]
+        heads = lambda t: t.transpose(1, 2).reshape(B * H, T, hd).to(cd)
+        out, _, _ = decode_attention(heads(q), heads(k), heads(v),
+                                     k_cache.view(B * H, S, hd), v_cache.view(B * H, S, hd),
+                                     pos)
+        out = out.view(B, H, T, hd).transpose(1, 2).reshape(B, T, H * hd).to(x.dtype)
     else:
         if k_cache.ndim == 3:  # flat rows
             k_cache[:, pos:P] = k.reshape(B, T, nl * hd).to(cd)
@@ -134,9 +151,17 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
         w = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1).to(x.dtype)
         out = (w @ v_all).transpose(1, 2).reshape(B, T, H * hd)
     x = x + out @ lp["wo"]["w"][l]
-    f = rms_norm(x, lp["ffn_norm"]["w"][l], cfg.norm_eps)
+    f = rms_norm(x, lp["ffn_norm"]["w"][l], norm_eps)
     f = (F.silu(f @ lp["w1"]["w"][l]) * (f @ lp["w3"]["w"][l])) @ lp["w2"]["w"][l]
     return x + f
+
+
+def _slow_heads(cfg: DualARConfig) -> Tuple[int, int, int, float]:
+    return cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.norm_eps
+
+
+def _fast_heads(cfg: DualARConfig) -> Tuple[int, int, int, float]:
+    return cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim, cfg.norm_eps
 
 
 def prefill(params: Dict, cfg: DualARConfig, state: DecodeState,
@@ -154,7 +179,8 @@ def prefill(params: Dict, cfg: DualARConfig, state: DecodeState,
     kc, vc = state.k_cache.clone(), state.v_cache.clone()
     x = emb_seq
     for l in range(cfg.n_layer):
-        x = _attn_block(params["layers"], l, x, freqs, kc[l], vc[l], start, cfg)
+        x = _attn_block(params["layers"], l, x, freqs, kc[l], vc[l], start,
+                        *_slow_heads(cfg))
     return DecodeState(kc, vc, start + T, state.trunc), x[:, -1:]
 
 
@@ -173,36 +199,99 @@ def _token_logits(params: Dict, cfg: DualARConfig, hidden: torch.Tensor) -> torc
     return out + params["output"]["b"] if "b" in params["output"] else out
 
 
+def slow_kernel_runs(params: Dict, cfg: DualARConfig, batch: int) -> bool:
+    """Whether `decode_frame` runs the slow step on its kernel: the JAX
+    package's condition (flat cache, batch 1, MHA, untied head, no bias)."""
+    return (cfg.use_pallas_slow_decode and batch == 1 and cfg.n_local_heads == cfg.n_head
+            and not cfg.tie_word_embeddings
+            and "b" not in params.get("output", {"b": None}))
+
+
+def fast_kernel_runs(cfg: DualARConfig, batch: int) -> bool:
+    """Whether `decode_frame` runs the codebook loop on its kernel."""
+    return (cfg.use_pallas_fast_decode and batch == 1
+            and cfg.fast_n_local_heads == cfg.fast_n_head)
+
+
+def _window(sampling: SamplingConfig, vocab: int) -> int:
+    k = sampling.top_k_window
+    return k if 0 < k < vocab else vocab
+
+
+def frame_noise_shapes(params: Dict, cfg: DualARConfig, sampling: SamplingConfig,
+                       batch: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The shapes of `decode_frame`'s Gumbel inputs (semantic, codebooks):
+    a kernel's exact sampler takes a row over the whole vocabulary, the
+    windowed sampler one over its window."""
+    sem = cfg.vocab_size
+    if not slow_kernel_runs(params, cfg, batch):
+        sem = _window(sampling, sem)
+    fast = cfg.codebook_size
+    if not fast_kernel_runs(cfg, batch):
+        fast = _window(sampling, fast)
+    return (batch, sem), (batch, cfg.num_codebooks, fast)
+
+
+def _sampler_args(sampling: SamplingConfig) -> Dict:
+    return dict(temperature=sampling.temperature, top_p=sampling.top_p,
+                greedy=sampling.greedy)
+
+
+def _fast_loop(params: Dict, cfg: DualARConfig, hidden: torch.Tensor,
+               gumbel: Optional[torch.Tensor],
+               sampling: SamplingConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The codebook loop as the JAX package's XLA path (`_fast_decode`'s
+    scan), at any batch and with GQA: a fresh zeroed per-head fast cache
+    each frame, the fast layers on one token a step, the windowed sampler
+    row by row on gumbel[:, step].  hidden (B, 1, fast_dim).  Returns
+    (codes (B, nq) int32, the nucleus truncations of the loop, int32)."""
+    B = hidden.shape[0]
+    nq = cfg.num_codebooks
+    heads = _fast_heads(cfg)
+    shape = (B, cfg.fast_n_local_heads, nq, cfg.fast_head_dim)
+    kc = [torch.zeros(shape, dtype=hidden.dtype, device=hidden.device)
+          for _ in range(cfg.n_fast_layer)]
+    vc = [torch.zeros_like(c) for c in kc]
+    freqs = freqs_table(nq, cfg.fast_head_dim, cfg.rope_base, hidden.device)
+    x = hidden
+    codes = []
+    trunc = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for s in range(nq):
+        y = x
+        for l in range(cfg.n_fast_layer):
+            y = _attn_block(params["fast_layers"], l, y, freqs[s : s + 1], kc[l], vc[l], s,
+                            *heads)
+        y = rms_norm(y, params["fast_norm"]["w"], cfg.norm_eps)
+        logits = (y @ params["fast_output"]["w"])[:, -1]
+        code, flag = sample_token(logits, None if gumbel is None else gumbel[:, s],
+                                  top_k_window=sampling.top_k_window, with_flag=True,
+                                  **_sampler_args(sampling))
+        trunc = trunc + flag.sum(dtype=torch.int32)
+        codes.append(code)
+        x = params["fast_embeddings"][code.long()][:, None].to(x.dtype)
+    return torch.stack(codes, dim=1), trunc
+
+
 def decode_frame(
     params: Dict, cfg: DualARConfig, state: DecodeState, emb2: torch.Tensor,
     sampling: SamplingConfig, gumbel_sem: Optional[torch.Tensor] = None,
     gumbel_fast: Optional[torch.Tensor] = None,
 ) -> Tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One two-token slow step + the fast codebook loop, batch 1.
+    """One two-token slow step + the fast codebook loop, at batch B.
 
-    emb2 (1, 2, dim) = [audio_emb, cond_emb].  Gumbel noise for the
-    semantic token and for the codebooks (1, nq, codebook_size) is an input,
-    unused when sampling is greedy: the semantic noise is (1, vocab) for the
-    slow kernel's exact filter, and on the per-head path (1,
-    top_k_window) with a sampling window, (1, vocab) without.  Returns
-    (state', semantic (1,), codes (1, nq), audio_emb (1, 1, dim)),
-    audio_emb being the next frame's summed codebook embedding.  Writes the
-    two fresh cache rows into state's caches in place."""
-    if not (cfg.use_pallas_fast_decode
-            and (cfg.use_pallas_slow_decode or cfg.use_pallas_decode)):
-        raise NotImplementedError("decode_frame needs use_pallas_fast_decode and one of "
-                                  "use_pallas_slow_decode, use_pallas_decode")
-    if (emb2.shape[0] != 1 or cfg.n_local_heads != cfg.n_head
-            or cfg.fast_n_local_heads != cfg.fast_n_head):
-        raise NotImplementedError("decode_frame supports batch 1 and MHA")
-    samp = dict(temperature=sampling.temperature, top_p=sampling.top_p,
-                greedy=sampling.greedy)
+    emb2 (B, 2, dim) = [audio_emb, cond_emb].  Gumbel noise for the
+    semantic token and for the codebooks is an input, unused when sampling
+    is greedy, shaped as `frame_noise_shapes` says: a row over the whole
+    vocabulary where a kernel's exact sampler runs, over the sampling
+    window where the windowed sampler does.  Returns (state', semantic
+    (B,), codes (B, nq), audio_emb (B, 1, dim)), audio_emb being the next
+    frame's summed codebook embedding.  Writes the two fresh cache rows
+    into state's caches in place."""
+    B = emb2.shape[0]
+    samp = _sampler_args(sampling)
     pos = state.pos
     trunc = state.trunc
-    if cfg.use_pallas_slow_decode:
-        if cfg.tie_word_embeddings or "b" in params.get("output", {}):
-            raise NotImplementedError("the slow-step kernel takes an untied output "
-                                      "head without bias")
+    if slow_kernel_runs(params, cfg, B):
         x2, k_rows, v_rows, semantic = slow_decode_step(
             params["layers"], emb2[0], state.k_cache[:, 0], state.v_cache[:, 0], pos,
             params["norm"]["w"], params["output"]["w"], gumbel_sem,
@@ -217,19 +306,25 @@ def decode_frame(
         x = emb2
         for l in range(cfg.n_layer):
             x = _attn_block(params["layers"], l, x, freqs, state.k_cache[l],
-                            state.v_cache[l], pos, cfg, kernel=True)
+                            state.v_cache[l], pos, *_slow_heads(cfg),
+                            kernel=cfg.use_pallas_decode)
         last = x[:, -1:]
         logits = _token_logits(params, cfg, last)[:, -1]
         semantic, flag = sample_token(logits, gumbel_sem, top_k_window=sampling.top_k_window,
                                       with_flag=True, **samp)
         trunc = trunc + flag.sum(dtype=torch.int32)
     hidden = _project_fast(params, last)
-    codes, aemb = fast_decode(
-        params["fast_layers"], params["fast_norm"]["w"], params["fast_output"]["w"],
-        params["fast_embeddings"], params["codebook_embeddings"], hidden[:, 0],
-        gumbel_fast, nq=cfg.num_codebooks, n_head=cfg.fast_n_head,
-        head_dim=cfg.fast_head_dim, norm_eps=cfg.norm_eps, rope_base=cfg.rope_base,
-        **samp)
-    audio_emb = aemb[:, None].to(params["codebook_embeddings"].dtype)
+    if fast_kernel_runs(cfg, B):
+        codes, aemb = fast_decode(
+            params["fast_layers"], params["fast_norm"]["w"], params["fast_output"]["w"],
+            params["fast_embeddings"], params["codebook_embeddings"], hidden[:, 0],
+            gumbel_fast, nq=cfg.num_codebooks, n_head=cfg.fast_n_head,
+            head_dim=cfg.fast_head_dim, norm_eps=cfg.norm_eps, rope_base=cfg.rope_base,
+            **samp)
+        audio_emb = aemb[:, None].to(params["codebook_embeddings"].dtype)
+    else:
+        codes, fast_trunc = _fast_loop(params, cfg, hidden, gumbel_fast, sampling)
+        trunc = trunc + fast_trunc
+        audio_emb = embed_codes(params, cfg, codes[:, :, None])
     return (DecodeState(state.k_cache, state.v_cache, pos + 2, trunc), semantic, codes,
             audio_emb)

@@ -38,7 +38,7 @@ SIGNATURES = {
     "wt_stream": ("svd_wt_stream_step", [_I, _I] + [_P] * 21 + [_I] * 10 + [_F, _F, _P]),
     "hifigan_head": ("svd_hifigan_head_step", [_P] * 6 + [_I] + [_P] * 3),
     "convnext_enc": ("svd_convnext_enc_step", [_P, _I, _P, _I] + [_P] * 10 + [_I, _P]),
-    "decode_attention": ("svd_decode_attention", [_I] + [_P] * 6 + [_I] * 5 + [_F, _P]),
+    "decode_attention": ("svd_decode_attention", [_I] + [_P] * 8 + [_I] * 7 + [_F, _P]),
 }
 # further entry points, by name: (source, C signature)
 EXTRA_ENTRY_POINTS = {

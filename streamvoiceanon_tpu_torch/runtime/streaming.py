@@ -6,8 +6,9 @@ of 2048 samples (one frame) runs three stages:
 1. incremental content encode (`tokenizer_stream.encode_stream`): one
    content token;
 2. the LM frame decode (`arvc.decode_one` -> `dual_ar.decode_frame`: the
-   slow-step kernel, or the layer loop on the per-head decode-attention
-   kernel and the windowed sampler; then the fast-loop kernel), then the
+   slow-step kernel, or the layer loop (on the per-head decode-attention
+   kernel or plain) and the windowed sampler; then the fast loop, on its
+   kernel or plain, as the decoder's flags say), then the
    incremental vocoder
    (`vocoder.decode_stream`): 2048 output samples;
 3. host logic: silence while the first `delay` tokens accumulate, a
@@ -143,21 +144,20 @@ class StreamSession:
                                     self.delay)
 
     def _noise(self):
-        """Gumbel rows for one frame, -log(-log(U)) drawn on the device: the
-        semantic row spans the sampling window on the per-head path (its
-        windowed sampler), the vocabulary on the slow kernel's exact one."""
+        """Gumbel rows for one frame, -log(-log(U)) drawn on the device, in
+        the shapes `dual_ar.frame_noise_shapes` gives: over the sampling
+        window where the windowed sampler runs, over the vocabulary where
+        a kernel's exact sampler does."""
         if self.sampling.greedy:
             return None, None
-        d = self.cfg.arvc.decoder
-        sem = d.vocab_size
-        if not d.use_pallas_slow_decode and 0 < self.sampling.top_k_window < sem:
-            sem = self.sampling.top_k_window
+        sem, fast = dual_ar.frame_noise_shapes(self.cv.arvc_params["model"],
+                                               self.cfg.arvc.decoder, self.sampling, 1)
 
-        def gumbel(*shape):
+        def gumbel(shape):
             u = torch.rand(shape, generator=self.generator, device=self.device)
             return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
 
-        return gumbel(1, sem), gumbel(1, d.num_codebooks, d.codebook_size)
+        return gumbel(sem), gumbel(fast)
 
     @property
     def truncation_count(self) -> int:

@@ -226,6 +226,62 @@ def test_decode_attention_kernel_matches_plain(geo):
     assert chip_smoke.compare_attention(*shape, "cuda", dtype, pos, False) <= tol
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [12, 48, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_over_batched_heads_at_split_edges(heads, dtype):
+    """Batch 1, 4 and 8 of the dual-AR's 12 heads at pos 0, 1, the split
+    edges, 1000 and 2046: caches equal, the output within the kernel's
+    tolerance (checked inside, with NaN stale rows and NaN kept partials
+    before the middle position)."""
+    _need_card()
+    geo = (heads, 2, 64, 2048)
+    pos = chip_smoke.attn_positions(*geo, dtype, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+    assert chip_smoke.compare_attention(*geo, "cuda", dtype, pos, True) >= 0.0
+
+
+@pytest.mark.gpu
+def test_decode_attention_is_one_device_launch_a_call():
+    _need_card()
+    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, kn, vn, kc, vc = chip_smoke.attn_inputs(96, 2, 64, 2048, "cuda", torch.bfloat16, g)
+    launches, by_kernel, _ = chip_smoke.profile_launches(
+        lambda: decode_attention(q, kn, vn, kc, vc, 1600), lambda c: c == 1)
+    assert launches == 1 and all("decode_attn_kernel" in k for k in by_kernel)
+
+
+@pytest.mark.gpu
+def test_batched_decode_launches_and_agrees_with_the_plain_flags():
+    """The tiny dual-AR at batch 3 in bf16: 12 frames under
+    `per_head_decode` launch the decode attention once a layer a frame and
+    nothing else, and agree with the plain flags up to explained flips
+    (checked inside)."""
+    _need_card()
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
+    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
+    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
+    from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
+    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+
+    acfg = C.ARVCConfig(decoder=C.DualARConfig(
+        vocab_size=512, n_layer=2, n_head=2, dim=32, intermediate_size=64, head_dim=16,
+        max_seq_len=256, codebook_size=100, num_codebooks=4, n_fast_layer=1, fast_dim=32,
+        fast_n_head=2, fast_head_dim=16, fast_intermediate_size=64), model_dim=32)
+    ap = P.arvc_params(rp.arvc_params_np(acfg, 5), "cuda", torch.bfloat16)
+    wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
+                "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
+    counts, st = chip_smoke.batched_decode(ap, acfg, "cuda", wrappers, batch=3, Tp=60,
+                                           frames=12)
+    assert counts == chip_smoke.counts_of(attn=acfg.decoder.n_layer * 12)
+    assert st["agree"] >= 0.9 * st["compared"]
+
+
 PROGRAMS = {
     "fast_slow": (C.fast_slow_config,
                   lambda f, t: chip_smoke.counts_of(slow=f, fast=f)),
