@@ -33,6 +33,15 @@ Phases, each reported on its own lines:
      carrying its own packed state, float32: max abs error <= 1e-3 over z
      and every packed buffer; before chunk 4 the kernel's kept scratch is
      filled with NaN, which must not reach any output;
+   - the head and the front with bf16 weights and tails over 4 chunks
+     (kept scratch NaN before chunk 2): every output within
+     HEAD_BF16_ULPS / FRONT_BF16_ULPS bf16 ulps of its largest value, and
+     the share of bf16 values that differ (`flip_share`) within
+     HEAD_FLIP_SHARE / FRONT_FLIP_SHARE, which the control without the
+     rounding (`unrounded`) must exceed;
+     the front also at two geometries its kernel took only from this
+     design on (`wider_fronts`: rows of 1024, a downsample product of 8),
+     in float32 (1e-3) and bf16;
    - the per-head decode attention (12, 48 and 96 heads x 64: batch 1, 4
      and 8; 2 new rows, 2048 cache rows) at pos 0, 1, its split edges near
      the start and near 1000, 1000 and 2046: caches equal, the output
@@ -69,10 +78,13 @@ Phases, each reported on its own lines:
    (CUDA events; the slow step at pos 150, 1000 and 1600) beside the least
    time the card could take for the same work, and for the attention (at
    batch 1, 4, 8 x pos 150, 1000, 1600) the time of
-   `F.scaled_dot_product_attention` over the valid rows;
+   `F.scaled_dot_product_attention` over the valid rows; the head and the
+   front in float32 beside bf16, and the front at the wider geometries
+   (`time_dsp`), each beside its bound at its type's bytes;
 3. the main path, `tpu_optimized` (four kernels): a full-width
-   StreamSession from seeded random weights (LM weights and KV cache in
-   bf16, the tokenizer and vocoder in float32) streams 40 chunks through
+   StreamSession from seeded random weights (LM weights in bf16, the
+   tokenizer and vocoder in float32, the KV cache and the stream tails in
+   bf16: `state_dtype`) streams 40 chunks through
    prompt refills; every output must be finite, 2048 samples, silent
    only while the delay fills; the slow, fast and head launches must each
    equal the frames decoded and the ring-step launches the tokens encoded.
@@ -88,6 +100,15 @@ Phases, each reported on its own lines:
    from a copy of the state under `PipelineConfig()`'s plain flags; tokens
    and codes agree up to bf16 flips that logit noise explains (at least
    90 %); frame ms p50/p90 of both;
+5. the prompt side on phase 3's weights (`prompt_side`): a 10 s synthetic
+   reference's speaker embeddings (seeded random CAM++ and speaker encoder
+   at their default configs), content tokens and codes, timed;
+   `StreamSession(cv, scfg, ref_wavs=[ref])` under tpu_optimized for 40
+   chunks with the launch check, in float32 state and at the JAX package's
+   serving point (bf16 tokenizer and vocoder weights, bf16 state), each
+   with its set-up ms; `VoiceConverter.infer` of a 4 s source (greedy,
+   delay 2): one fast-loop launch a generated frame, one slow-step launch
+   a frame after the first, its ms and real-time factor;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
    session that runs it), the card line, and as the last line
    {"ok": true, "device": {...}}.
@@ -100,6 +121,7 @@ exits nonzero before any phase.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -1187,60 +1209,163 @@ def front_tree_np(tcfg, seed: int = 41):
     return tree
 
 
-def front_state(tcfg, device, g):
-    """A packed front state of random tails (padding rows included)."""
+def front_state(tcfg, device, g, dtype=None):
+    """A packed front state of random tails (padding rows included), in
+    `dtype` (float32 unless given), its leaves views of one buffer as every
+    state the package makes."""
     import torch
 
-    from streamvoiceanon_tpu_torch.ops.convnext_enc import PackedEncState, init_packed_state
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import init_packed_state
 
-    z = init_packed_state(tcfg, 1, device=device)
-    r = lambda t: torch.randn(t.shape, generator=g, device=device)
-    return PackedEncState(r(z.stem), tuple(r(t) for t in z.stages), r(z.down))
+    st = init_packed_state(tcfg, 1, dtype or torch.float32, device=device)
+    for t in front_leaves(st):
+        t.copy_(torch.randn(t.shape, generator=g, device=device))
+    return st
 
 
 def front_leaves(state):
     return [state.stem, *state.stages, state.down]
 
 
-def front_weights(tcfg, device):
-    """The seeded front's packed weights and their unit-packed matrices."""
+def front_weights(tcfg, device, dtype=None):
+    """The seeded front's packed weights (in `dtype`, float32 unless given)
+    and their unit-packed matrices."""
+    import torch
+
     from streamvoiceanon_tpu_torch import params as P
     from streamvoiceanon_tpu_torch.ops.convnext_enc import packed_weights, unit_weights
 
-    pw = packed_weights(P.tokenizer_params(front_tree_np(tcfg), device), tcfg)
+    tp = P.tokenizer_params(front_tree_np(tcfg), device, dtype or torch.float32)
+    pw = packed_weights(tp, tcfg)
     return pw, unit_weights(pw)
 
 
-def compare_front(tcfg, device, chunks: int, check: bool):
+# bf16 tolerances of the head and front kernels against their plain
+# versions, in bf16 ulps of each output's largest value: both round at the
+# same points, but sum in other orders, so a sum may round the other way
+# and the one-ulp flip passes on through the later layers (97 convs in the
+# head at the published width, where the H100 measured 2.0 ulps; 46
+# products and their LayerNorms in the front)
+HEAD_BF16_ULPS, FRONT_BF16_ULPS = 4, 4
+# The ulp bounds cannot tell a kernel that rounds where the plain version
+# rounds from one that leaves the rounding out: a one-ulp flip anywhere
+# passes through the LayerNorms and later convs, so both end a few ulps
+# away.  Where both sides round at the same points, most values of the
+# first rounded outputs still agree bit for bit: `flip_share`, the mean
+# share of bf16 values that differ over the head's tails and wave, and over
+# the front's first stage of tails (its stem, stem LN and first blocks;
+# later stages differ in most values either way).  The control,
+# `unrounded`, is the plain version with every activation held in
+# float32; it must exceed these bounds, or the check could not see a
+# missing rounding.
+HEAD_FLIP_SHARE, FRONT_FLIP_SHARE = 0.1, 0.15
+
+
+def _tmap(fn, x):
+    """fn on every tensor of a tree of dicts, lists and (named) tuples."""
+    import torch
+
+    if torch.is_tensor(x):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _tmap(fn, v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_tmap(fn, v) for v in x]
+    if isinstance(x, tuple):
+        vals = [_tmap(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def unrounded(plain):
+    """The control of the bf16 rounding checks: `plain` (the head's or the
+    front's plain step) with the weights' and tails' values in float32, so
+    that every activation stays float32; only the new tails and the output
+    are rounded to their types, once, at the end of the step."""
+    import torch
+
+    def step(pw, state, x, cfg, **_):
+        wd = (pw["stem_w"] if "stem_w" in pw else pw["pre_w"]).dtype
+        sd = state[0].dtype
+        new, y = plain(_tmap(lambda t: t.float(), pw), _tmap(lambda t: t.float(), state), x,
+                       cfg)
+        return _tmap(lambda t: t.to(sd), new), y.to(wd)
+
+    return step
+
+
+def flip_share(got, want) -> float:
+    """The mean over the leaves of the share of their values whose bf16
+    roundings differ."""
+    import torch
+
+    shares = [float((a.to(torch.bfloat16) != b.to(torch.bfloat16)).float().mean())
+              for a, b in zip(got, want) if a.numel()]
+    return sum(shares) / len(shares)
+
+
+def leaf_err(got, want) -> tuple:
+    """(max abs error over the leaves, the largest error in bf16 ulps of its
+    leaf's largest magnitude)."""
+    import torch
+
+    worst, ulps = 0.0, 0.0
+    for a, b in zip(got, want):
+        if a.numel() == 0:
+            continue
+        e = float((a.float() - b.float()).abs().max())
+        top = b.float().abs().max().clamp_min(1e-30)
+        ulps = max(ulps, e / float(torch.exp2(torch.floor(torch.log2(top)) - 7)))
+        worst = max(worst, e)
+    return worst, ulps
+
+
+def compare_front(tcfg, device, chunks: int, check: bool, wd=None, sd=None, kern=None):
     """The fused ConvNeXt front against its plain version over `chunks`
-    chunks of 4 mel frames, each side carrying its own packed state from
-    the same random tails; before the middle chunk the kernel's kept
-    scratch (both activation buffers and the hidden rows) is filled with
-    NaN, so that a phase that reads what its call did not write shows up.
-    Returns the max abs error over z and every packed buffer."""
+    launches' worth of mel frames (`launch_frames`), weights in `wd` and
+    tails in `sd` (float32 unless given), each side carrying its own packed
+    state from the same random tails; before the middle chunk the kernel's
+    kept scratch (both activation buffers and the hidden rows) is filled
+    with NaN, so that a phase that reads what its call did not write shows
+    up.  `kern` takes the kernel's place where given (the control).
+    Returns (max abs error over z and every packed buffer, the same in bf16
+    ulps, the largest `flip_share` of the first stage's tails); float32
+    within TOL; bf16 within FRONT_BF16_ULPS, and with bf16 weights within
+    FRONT_FLIP_SHARE."""
     import torch
 
     from streamvoiceanon_tpu_torch.ops.convnext_enc import (
-        encoder_front_step, encoder_front_step_plain, kept_scratch)
+        encoder_front_step, encoder_front_step_plain, kept_scratch, launch_frames)
 
-    pw, units = front_weights(tcfg, device)
+    wd, sd = wd or torch.float32, sd or torch.float32
+    bf16 = torch.bfloat16 in (wd, sd)
+    pw, units = front_weights(tcfg, device, wd)
+    step = kern or functools.partial(encoder_front_step, units=units)
     g = torch.Generator(device=device).manual_seed(23)
-    sk = sp = front_state(tcfg, device, g)
-    worst = 0.0
+    sk = sp = front_state(tcfg, device, g, sd)
+    T = launch_frames(tcfg)
+    Tz = T // int(np.prod(tcfg.quantizer.downsample_factor))
+    worst = (0.0, 0.0, 0.0)
     for c in range(chunks):
-        mel = torch.randn((1, 4, tcfg.backbone.input_channels), generator=g, device=device)
+        mel = torch.randn((1, T, tcfg.backbone.input_channels), generator=g, device=device)
         if c == chunks // 2 and torch.device(device).type == "cuda":
             for t in kept_scratch(tcfg, device).values():
                 t.fill_(float("nan"))
-        sk, zk = encoder_front_step(pw, sk, mel, tcfg, units=units)
+        sk, zk = step(pw, sk, mel, tcfg)
         sp, zp = encoder_front_step_plain(pw, sp, mel, tcfg)
-        if not (torch.isfinite(zk).all() and zk.shape == (1, 1, tcfg.quantizer.input_dim)):
-            raise AssertionError(f"front chunk {c}: shape {tuple(zk.shape)} or not finite")
-        err = max(float((a - b).abs().max()) for a, b in zip(
-            [zk, *front_leaves(sk)], [zp, *front_leaves(sp)]))
-        worst = max(worst, err)
-        if check and not err <= TOL:
-            raise AssertionError(f"front disagrees at chunk {c}: err {err:.3e}")
+        if not (torch.isfinite(zk).all() and zk.shape == (1, Tz, tcfg.quantizer.input_dim)
+                and zk.dtype == wd and sk.stem.dtype == sd):
+            raise AssertionError(f"front chunk {c}: {zk.dtype} {tuple(zk.shape)}, state "
+                                 f"{sk.stem.dtype}, or not finite")
+        err = (*leaf_err([zk, *front_leaves(sk)], [zp, *front_leaves(sp)]),
+               flip_share(sk.stages[:1], sp.stages[:1]))
+        worst = tuple(max(a, b) for a, b in zip(worst, err))
+        ok = (err[1] <= FRONT_BF16_ULPS and (wd != torch.bfloat16 or err[2] <= FRONT_FLIP_SHARE)
+              if bf16 else err[0] <= TOL)
+        if check and not ok:
+            raise AssertionError(f"front ({wd}, {sd}) disagrees at chunk {c}: err "
+                                 f"{err[0]:.3e} ({err[1]:.2f} bf16 ulps, flip share "
+                                 f"{err[2]:.3f})")
     return worst
 
 
@@ -1425,36 +1550,51 @@ def head_leaves(state):
     return [state.pre, *state.ups, *state.res, state.post]
 
 
-def compare_head(hcfg, device, chunks: int, check: bool):
-    """The fused head against its plain version over `chunks` chunks, each
-    side carrying its own state; before the middle chunk the kernel's kept
+def compare_head(hcfg, device, chunks: int, check: bool, wd=None, sd=None, kern=None):
+    """The fused head against its plain version over `chunks` chunks,
+    weights in `wd` and tails in `sd` (float32 unless given), each side
+    carrying its own state; before the middle chunk the kernel's kept
     scratch (activations and split partials) is filled with NaN, so that a
     launch that reads what no earlier launch of its call wrote shows up.
-    Returns the max abs error over the waveforms and every packed tail."""
+    `kern` takes the kernel's place where given (the control).  Returns
+    (max abs error over the waveforms and every packed tail, the same in
+    bf16 ulps, the largest `flip_share` of the tails and the wave); float32
+    within TOL; bf16 within HEAD_BF16_ULPS, and with bf16 weights within
+    HEAD_FLIP_SHARE."""
     import torch
 
     from streamvoiceanon_tpu_torch.ops.hifigan import (
         head_stream_step, head_stream_step_plain, init_packed_state, kept_scratch)
 
+    wd, sd = wd or torch.float32, sd or torch.float32
+    bf16 = torch.bfloat16 in (wd, sd)
     _, pw = head_params(hcfg, device)
+    pw = {k: [{n: t.to(wd) for n, t in s_.items()} for s_ in v] if k == "stages"
+          else v.to(wd) for k, v in pw.items()}
     g = torch.Generator(device=device).manual_seed(13)
-    sk = sp = init_packed_state(hcfg, 1, device=device)
-    worst = 0.0
+    sk = sp = init_packed_state(hcfg, 1, sd, device=device)
+    step = kern or head_stream_step
+    worst = (0.0, 0.0, 0.0)
     for c in range(chunks):
         x = torch.randn((1, 4, hcfg.num_mels), generator=g, device=device)
         if c == chunks // 2:
             scratch, floats = kept_scratch(hcfg, 4, device)
             scratch[:floats] = float("nan")
-        sk, wk = head_stream_step(pw, sk, x, hcfg)
+        sk, wk = step(pw, sk, x, hcfg)
         sp, wp = head_stream_step_plain(pw, sp, x, hcfg)
-        err = max(float((a - b).abs().max()) for a, b in zip(
-            [wk, *head_leaves(sk)], [wp, *head_leaves(sp)]))
-        if not (torch.isfinite(wk).all() and wk.shape == (1, 4 * int(np.prod(
-                hcfg.upsample_rates)))):
-            raise AssertionError(f"head chunk {c}: shape {tuple(wk.shape)} or not finite")
-        worst = max(worst, err)
-        if check and not err <= TOL:
-            raise AssertionError(f"head disagrees at chunk {c}: err {err:.3e}")
+        got, want = [wk, *head_leaves(sk)], [wp, *head_leaves(sp)]
+        err = (*leaf_err(got, want), flip_share(got, want))
+        if not (torch.isfinite(wk).all() and wk.dtype == wd and sk.pre.dtype == sd
+                and wk.shape == (1, 4 * int(np.prod(hcfg.upsample_rates)))):
+            raise AssertionError(f"head chunk {c}: {wk.dtype} {tuple(wk.shape)}, state "
+                                 f"{sk.pre.dtype}, or not finite")
+        worst = tuple(max(a, b) for a, b in zip(worst, err))
+        ok = (err[1] <= HEAD_BF16_ULPS and (wd != torch.bfloat16 or err[2] <= HEAD_FLIP_SHARE)
+              if bf16 else err[0] <= TOL)
+        if check and not ok:
+            raise AssertionError(f"head ({wd}, {sd}) disagrees at chunk {c}: err "
+                                 f"{err[0]:.3e} ({err[1]:.2f} bf16 ulps, flip share "
+                                 f"{err[2]:.3f})")
     return worst
 
 
@@ -1509,6 +1649,182 @@ def time_ring_head(wcfg, hcfg, device, count: int):
     return out
 
 
+def wider_fronts(tcfg):
+    """Front geometries the kernel takes since its rows follow the plan:
+    rows wider than its 512 threads (dims 192 .. 1024, C_q 1024) and a
+    downsample product of 8 (one launch takes 8 frames)."""
+    from streamvoiceanon_tpu_torch import config as C
+
+    return {"wide": C.replace(tcfg, backbone=C.replace(tcfg.backbone,
+                                                       dims=(192, 384, 768, 1024)),
+                              quantizer=C.replace(tcfg.quantizer, input_dim=1024)),
+            "down8": C.replace(tcfg, quantizer=C.replace(tcfg.quantizer,
+                                                         downsample_factor=(2, 2, 2)))}
+
+
+def time_dsp(hcfg, tcfg, device):
+    """The head (T0 = 4) and the front (a launch's frames) with weights and
+    tails in float32 and in bf16, kernels alternated in one loop (f32, bf16,
+    bf16, f32): ms and the bound at each type's bytes and peak rate; the
+    front also at the wider geometries in float32."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step, launch_frames
+    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step, init_packed_state
+
+    f32, b16 = torch.float32, torch.bfloat16
+    peak = {f32: FP32_FLOPS, b16: BF16_FLOPS}  # by the operands' type
+    g = torch.Generator(device=device).manual_seed(37)
+    _, hp = head_params(hcfg, device)
+    xh = torch.randn((1, 4, hcfg.num_mels), generator=g, device=device)
+    calls, bounds = {}, {}
+    for dt in (f32, b16):
+        pw = {k: [{n: t.to(dt) for n, t in s_.items()} for s_ in v] if k == "stages"
+              else v.to(dt) for k, v in hp.items()}
+        st = init_packed_state(hcfg, 1, dt, device=device)
+        calls[("head", dt)] = functools.partial(head_stream_step, pw, st, xh, hcfg)
+        w = [pw["pre_w"], pw["pre_b"], pw["post_w"], pw["post_b"]]
+        for s_ in pw["stages"]:
+            w += list(s_.values())
+        nb = (nbytes(*w) + 2 * nbytes(*head_leaves(st)) + nbytes(xh)
+              + 4 * int(np.prod(hcfg.upsample_rates)) * torch.empty((), dtype=dt).itemsize)
+        bounds[("head", dt)] = bound(nb, head_flops(hcfg, 4), peak[dt])
+    fronts = {"enc": tcfg, **{f"enc_{k}": v for k, v in wider_fronts(tcfg).items()}}
+    for key, tc in fronts.items():
+        for dt in ((f32, b16) if key == "enc" else (f32,)):
+            pw, units = front_weights(tc, device, dt)
+            st = front_state(tc, device, g, dt)
+            T = launch_frames(tc)
+            mel = torch.randn((1, T, tc.backbone.input_channels), generator=g, device=device)
+            calls[(key, dt)] = functools.partial(encoder_front_step, pw, st, mel, tc,
+                                                 units=units)
+            w = [t for k_, t in pw.items() if torch.is_tensor(t)]
+            for grp in (pw["stages"], pw["mids"], pw["downs"]):
+                for d_ in grp:
+                    for v in d_.values():
+                        w += list(v.values()) if isinstance(v, dict) else [v]
+            zb = T // int(np.prod(tc.quantizer.downsample_factor)) * tc.quantizer.input_dim
+            nb = (nbytes(*w) + 2 * nbytes(*front_leaves(st)) + nbytes(mel)
+                  + zb * torch.empty((), dtype=dt).itemsize)
+            bounds[(key, dt)] = bound(nb, front_flops(tc, T), peak[dt])
+    runs = {k: [] for k in calls}
+    for order in ((f32, b16), (b16, f32)):
+        for key in ("head", *fronts):
+            for dt in order:
+                if (key, dt) in calls:
+                    runs[(key, dt)].append(cuda_ms(calls[(key, dt)], 30))
+    return {k: {"ms": min(v), "ms_runs": v, **bounds[k]} for k, v in runs.items()}
+
+
+def synthetic_voice(seconds: float, f0: float, seed: int) -> np.ndarray:
+    """Seeded synthetic speech-like audio at 44.1 kHz: five harmonics of a
+    slowly gliding f0 under a syllable-rate envelope, plus noise."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 44100)
+    t = np.arange(n) / 44100.0
+    f = f0 * (1.0 + 0.1 * np.sin(2 * np.pi * 0.7 * t))
+    phase = 2 * np.pi * np.cumsum(f) / 44100.0
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t + rng.uniform(0, 6.28)) ** 2
+    wav = sum(np.sin(h * phase + rng.uniform(0, 6.28)) / h for h in range(1, 6))
+    return (0.1 * env * wav + 0.005 * rng.standard_normal(n)).astype(np.float32)
+
+
+def prompt_side(cv, device, scfg, wrappers):
+    """Phase 5: the prompt side at full width on `cv`'s weights plus seeded
+    random CAM++ and speaker-encoder weights (their default configs): a 10 s
+    synthetic reference's speaker embeddings, content tokens and codes
+    (each timed after one warm-up call), then `StreamSession(cv, scfg,
+    ref_wavs=[ref])` under tpu_optimized for 40 chunks with drive()'s
+    launch check in float32 state, and again at the JAX package's serving
+    point (bf16 tokenizer and vocoder weights, bf16 state), then
+    `VoiceConverter.infer` of a 4 s source, greedy, delay 2: one fast-loop
+    launch a generated frame and one slow-step launch a frame after the
+    first (whose codes come from the prompt's last hidden)."""
+    import dataclasses
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.runtime.pipeline import VoiceConverter
+    from streamvoiceanon_tpu_torch.runtime.streaming import StreamSession
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+
+    cfg = cv.cfg
+    vc = VoiceConverter(dataclasses.replace(
+        cv, campplus_params=P.campplus_params(rp.campplus_params_np(cfg.campplus, 5), device),
+        speaker_params=P.speaker_params(rp.speaker_encoder_params_np(cfg.speaker, 6), device)))
+    ref = synthetic_voice(10.0, 150.0, 51)
+    sync = torch.cuda.synchronize
+
+    def timed(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    (style, timbre), spk_ms = timed(lambda: vc.speaker_embeddings([ref], scfg.alpha))
+    toks, tok_ms = timed(lambda: vc.content_tokens(ref[None]))
+    codes, code_ms = timed(lambda: vc.audio_codes(ref[None]))
+    n_frames = len(ref) // SPF
+    for name, x, shape in (("style", style, (1, cfg.campplus.embedding_size)),
+                           ("timbre", timbre, (1, cfg.speaker.token_num,
+                                               cfg.speaker.latent_dim)),
+                           ("tokens", toks, (1, n_frames)),
+                           ("codes", codes, (1, cfg.arvc.decoder.num_codebooks, n_frames))):
+        if tuple(x.shape) != shape or not torch.isfinite(x.float()).all():
+            raise AssertionError(f"prompt side: {name} {tuple(x.shape)}, expected {shape}, "
+                                 "or not finite")
+    out = {"spk_ms": spk_ms, "tok_ms": tok_ms, "code_ms": code_ms}
+    log(f"[5] prompt side, 10 s reference at 44.1 kHz: speaker embeddings (resample, "
+        f"fbank, CAM++, speaker encoder) {spk_ms:.2f} ms, content tokens {tok_ms:.2f} ms, "
+        f"codes {code_ms:.2f} ms (each after one warm-up call); {n_frames} frames, "
+        f"{len(np.unique(toks.cpu().numpy()))} distinct tokens")
+    packed = ("enc_packed", "enc_units", "head_packed")  # packed anew from the bf16 trees
+    bf16 = lambda t: P.cast_tree({k: v for k, v in t.items() if k not in packed},
+                                 torch.bfloat16)
+    cv = vc.converter
+    cv16 = dataclasses.replace(cv, tokenizer_params=bf16(cv.tokenizer_params),
+                               vocoder_params=bf16(cv.vocoder_params))
+    for label, conv, sd in (("float32 state", cv, torch.float32),
+                            ("bf16 DSP and state", cv16, torch.bfloat16)):
+        sync()
+        t0 = time.perf_counter()
+        sess = StreamSession(conv, scfg, [ref], state_dtype=sd)
+        sync()
+        setup_ms = 1e3 * (time.perf_counter() - t0)
+        if sess.Tp != scfg.max_prompt_frames:
+            raise AssertionError(f"ref_wavs session: prompt of {sess.Tp} frames")
+        drive(f"ref_wavs session, {label}", sess, np.random.default_rng(55), 40,
+              lambda f, t: counts_of(slow=f, fast=f, ring=t, head=f), wrappers)
+        out[label] = {"setup_ms": setup_ms}
+        log(f"[5] StreamSession(ref_wavs=[10 s]) {label}: set-up (speaker embeddings, "
+            f"codes, tokens, prompt prefill) {setup_ms:.1f} ms")
+    src = synthetic_voice(4.0, 200.0, 56)
+    for w in wrappers.values():
+        w.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    wav = vc.infer(src, [ref], delay=2, sampling=C.SamplingConfig(greedy=True))
+    sync()
+    infer_s = time.perf_counter() - t0
+    Ts = len(src) // SPF
+    frames = -(-Ts // 16) * 16
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if counts != counts_of(slow=frames - 1, fast=frames):
+        raise AssertionError(f"infer: launch counts {counts}, expected "
+                             f"{counts_of(slow=frames - 1, fast=frames)} ({frames} frames)")
+    if wav.shape != (Ts * SPF,) or not np.all(np.isfinite(wav)) or not np.any(wav != 0):
+        raise AssertionError(f"infer: wav {wav.shape}, finite {np.all(np.isfinite(wav))}")
+    out["infer"] = {"s": infer_s, "rtf": infer_s / (len(src) / 44100.0), "frames": frames}
+    log(f"[5] VoiceConverter.infer, 4 s source ({Ts} frames, {frames} generated), 10 s "
+        f"reference, greedy, delay 2: {1e3 * infer_s:.1f} ms, real-time factor "
+        f"{out['infer']['rtf']:.4f}; launches {counts}")
+    return out
+
+
 def head_flops(hcfg, T0: int) -> int:
     """Multiply-adds x 2 of one head step on T0 frames."""
     from streamvoiceanon_tpu_torch.ops.hifigan import stage_channels
@@ -1530,11 +1846,12 @@ def head_flops(hcfg, T0: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int = 0,
-                  converter=None):
-    """A StreamSession under `cfg`, on seeded random weights, or on the
-    weights of `converter` (built under a program set whose parameter tree
-    holds what `cfg` needs)."""
+def build_session(cfg, device, scfg, sampling, lm_dtype, state_dtype, seed: int = 0,
+                  converter=None, dsp_dtype=None):
+    """A StreamSession under `cfg`, on seeded random weights (the tokenizer
+    and vocoder in `dsp_dtype`, float32 unless given), or on the weights of
+    `converter` (built under a program set whose parameter tree holds what
+    `cfg` needs)."""
     import dataclasses
 
     import torch
@@ -1548,7 +1865,8 @@ def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int 
         cv = P.converter_from_numpy(
             cfg, rp.tokenizer_params_np(cfg.tokenizer, seed + 1),
             rp.vocoder_params_np(cfg.vocoder, seed + 2),
-            rp.arvc_params_np(cfg.arvc, seed + 3), device=device, lm_dtype=lm_dtype)
+            rp.arvc_params_np(cfg.arvc, seed + 3), device=device, lm_dtype=lm_dtype,
+            dsp_dtype=dsp_dtype or torch.float32)
     else:
         cv = dataclasses.replace(converter, cfg=cfg)
     t_params = time.time() - t0
@@ -1562,7 +1880,7 @@ def build_session(cfg, device, scfg, sampling, lm_dtype, cache_dtype, seed: int 
         timbre=rng.standard_normal((1, 32, cfg.arvc.context_dim)).astype(np.float32),
         ref_tokens=rng.integers(0, d.vocab_size, (1, Tp)).astype(np.int32),
         ref_codes=rng.integers(0, d.codebook_size, (1, d.num_codebooks, Tp)).astype(np.int32),
-        cache_dtype=cache_dtype)
+        state_dtype=state_dtype)
     if str(device).startswith("cuda"):
         torch.cuda.synchronize()
     return sess, rng, t_params, time.time() - t0, cv
@@ -1870,13 +2188,40 @@ def main() -> int:
     ring16 = compare_ring(wcfg, device, torch.bfloat16, RING_COUNTS, False)
     log(f"[2] ring step at counts {list(RING_COUNTS)}: f32 max abs err "
         f"{st32['ring']['err']:.3e} (bound {TOL}); bf16 max abs err {ring16:.3e} (reported)")
-    st32["head"] = {"err": compare_head(hcfg, device, 8, True)}
+    st32["head"] = {"err": compare_head(hcfg, device, 8, True)[0]}
     log(f"[2] head over 8 chunks, state carried, the kept scratch NaN before chunk 4: f32 "
         f"max abs err {st32['head']['err']:.3e} (bound {TOL})")
-    st32["enc"] = {"err": compare_front(tcfg, device, 8, True)}
+    st32["enc"] = {"err": compare_front(tcfg, device, 8, True)[0]}
     log(f"[2] ConvNeXt front over 8 chunks, state carried, the kept scratch NaN before "
         f"chunk 4: f32 max abs err "
         f"{st32['enc']['err']:.3e} (bound {TOL})")
+    b16 = torch.bfloat16
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step_plain
+    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step_plain
+
+    for name, fn, plain, ulps, flips in (
+            ("head", compare_head, head_stream_step_plain, HEAD_BF16_ULPS, HEAD_FLIP_SHARE),
+            ("ConvNeXt front", compare_front, encoder_front_step_plain, FRONT_BF16_ULPS,
+             FRONT_FLIP_SHARE)):
+        cfg_ = hcfg if name == "head" else tcfg
+        err, eu, share = fn(cfg_, device, 4, True, b16, b16)
+        _, cu, cshare = fn(cfg_, device, 4, False, b16, b16, kern=unrounded(plain))
+        log(f"[2] bf16 {name} (bf16 weights and tails) over 4 chunks, the kept scratch NaN "
+            f"before chunk 2: max abs err {err:.3e}, {eu:.2f} bf16 ulps of its output "
+            f"(bound {ulps} ulps), flip share {share:.4f} (bound {flips}); the control "
+            f"without the rounding: {cu:.2f} ulps, flip share {cshare:.4f}")
+        if cshare <= flips:
+            raise AssertionError(f"bf16 {name}: the control without the rounding reads flip "
+                                 f"share {cshare:.4f}, within the bound {flips}: the check "
+                                 "cannot see a missing rounding")
+    for name, wc in wider_fronts(tcfg).items():
+        for dt in (torch.float32, b16):
+            err, eu, _ = compare_front(wc, device, 4, True, dt, dt)
+            bb = wc.backbone
+            log(f"[2] ConvNeXt front at the {name} geometry (dims {bb.dims}, C_q "
+                f"{wc.quantizer.input_dim}, downsample {wc.quantizer.downsample_factor}), "
+                f"{str(dt)[6:]}: max abs err {err:.3e}, {eu:.2f} bf16 ulps (bound "
+                + (f"{FRONT_BF16_ULPS} ulps)" if dt == b16 else f"{TOL})"))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     st32["attn"] = {"err": 0.0}
     for H in ATTN_HEADS:
@@ -1906,6 +2251,14 @@ def main() -> int:
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B)")
     tk.update(time_ring_head(wcfg, hcfg, device, 1000))
     tk.update(time_front_attention(tcfg, d, device))
+    dsp = time_dsp(hcfg, tcfg, device)
+    for key, what in (("head", "head T0 4"), ("enc", "front"), ("enc_wide", "front wide"),
+                      ("enc_down8", "front downsample 8")):
+        log(f"[2] {what}: " + "; ".join(
+            f"{str(dt)[6:]} kernel {t['ms']:.4f} ms (runs "
+            f"{', '.join(f'{x:.4f}' for x in t['ms_runs'])}), bound {t['bound_ms']:.4f} ms "
+            f"by {t['bound_by']} ({t['bytes']} B)"
+            for (k, dt), t in dsp.items() if k == key))
     for name, what in (("slow", "bf16 pos 1000"), ("fast", "bf16"),
                        ("ring", "f32 count 1000"), ("head", "f32 T0 4"),
                        ("enc", "f32 T0 4"), ("attn", "bf16 12 heads pos 1000")):
@@ -1960,6 +2313,9 @@ def main() -> int:
         f"{bst['plain_ms'][0]:.3f} p90 {bst['plain_ms'][1]:.3f}; tokens and codes agree "
         f"{bst['agree']}/{bst['compared']}, largest logit difference "
         f"{bst['logit_diff']:.4g}; flips: {flips}")
+
+    # ---- phase 5: the prompt side on phase 3's weights
+    prompt_side(cv, device, scfg, wrappers)
 
     # ---- phase 4
     kernels = []

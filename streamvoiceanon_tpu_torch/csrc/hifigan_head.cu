@@ -1,4 +1,4 @@
-// The streaming HiFiGAN head at batch 1, float32: conv_pre -> per stage
+// The streaming HiFiGAN head at batch 1: conv_pre -> per stage
 // [SiLU -> transposed upsample (k = 2 * stride) -> mean of the ResBlock
 // branches, each dilations x (SiLU -> causal dilated conv -> SiLU -> causal
 // dilated conv) with residual] -> SiLU -> conv_post -> tanh.  The port of
@@ -15,8 +15,8 @@
 // upsample, or conv_post) averages the branches as it loads a row,
 // ((D_0 + D_1) + D_2) / 3 in the plain version's order, then applies SiLU.
 //
-// `level_kernel<TM, TN>` is an implicit-GEMM causal dilated conv on the CUDA
-// cores in full float32 (no TF32).  Its blocks walk the level's work list:
+// `level_kernel<TM, TN, W, S>` is an implicit-GEMM causal dilated conv on
+// the CUDA cores in full float32 (no TF32).  Its blocks walk the level's work list:
 // per conv, per TM x TN output tile, per K split (a tile's splits on
 // consecutive blocks).  The plan gives each level the tile with the least
 // padding: 16 x 64 at conv_pre and the first upsample (4 rows), 32 x 64 at
@@ -50,6 +50,15 @@
 // once, so a level ends only after the level before it has ended, and the
 // wait also orders it after every earlier level and call.
 //
+// Element types.  The weights (and biases) are W and the state tails S,
+// each float32 or bf16, as the JAX kernel takes them as given; every
+// product accumulates in float32.  The activation buffers stay float32, but
+// hold values of the JAX kernel's working type promote(W, S): where both
+// are bf16 each rounding point of the plain version rounds to bf16 (`act`:
+// a conv's output after the bias, the residual sum, the branch mean, SiLU),
+// and tails are stored as S.  The input rows come rounded to W and the
+// waveform is rounded to W by the wrapper (ops/hifigan.py).
+//
 // Plain C interface for ctypes.  `geo` is a HOST int array (written by
 // ops/hifigan.py `_geometry`): a header of HDR ints, then per level LVL
 // ints (conv count, tile rows, tile columns) and one record of NF ints per
@@ -64,16 +73,23 @@
 // `stamps` is null, or (levels, part_elems / PART, 4) device int64 that
 // take each block's global times (`stamp`).
 // Buffer ids in a record: 0 is x, 1 is wav, 2 + i scratch buffer i.
+// `w_bf16` and `s_bf16` say whether W and S are bf16.
 // Returns the first CUDA error of a launch (0 when all were accepted).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "decode_common.cuh"
 
 namespace {
 
+using svd::bf16;
 using svd::launch_pdl;
+using svd::rnd;
+using svd::to_f;
+using svd::from_f;
 using svd::pdl_launch_dependents;
 using svd::pdl_wait;
 
@@ -84,8 +100,8 @@ constexpr int PART = 4096;     // floats of split partial a block: the largest t
 constexpr int MAX_CONV = 4;    // convs in one level (mirrored)
 constexpr int HDR = 5;         // header ints of `geo`: n_level, n_buf, buf_elems, part_elems, n_ticket
 constexpr int LVL = 3;         // ints before a level's records: n_conv, TM, TN
-// the tiles (TM, TN) a level may take: level_kernel<16, 64>, level_kernel<32, 64>,
-// level_kernel<64, 64>, level_kernel<64, 32> (mirrored as TILES)
+// the tiles (TM, TN) a level may take, each for every (W, S): 16 x 64,
+// 32 x 64, 64 x 64 and 64 x 32 (mirrored as TILES)
 
 // one conv's record in `geo`, in order (mirrored as CONV_FIELDS)
 enum Field {
@@ -94,17 +110,21 @@ enum Field {
   F_TILES_M, F_TILES_N, F_KSPLIT, F_PER, NF
 };
 
+template <typename W, typename S>
 struct Conv {
-  const float* tail;      // (rows_pad, Cin) old input tail; rows >= `rows` are kept
-  float* new_tail;        // (rows_pad, Cin)
+  // promote(W, S) is bf16: the activations round to bf16
+  static constexpr bool RB = std::is_same<W, bf16>::value && std::is_same<S, bf16>::value;
+  static __device__ __forceinline__ float act(float v) { return RB ? rnd<bf16>(v) : v; }
+  const S* tail;          // (rows_pad, Cin) old input tail; rows >= `rows` are kept
+  S* new_tail;            // (rows_pad, Cin)
   int rows, rows_pad;
   const float* x;         // (T, Cin) new input rows: the mean of x_n buffers
   long x_stride;          // elements from one of those buffers to the next
   int x_n, silu;          // SiLU of x as it is read (a tail holds SiLU'd rows)
   int T, Cin, k, d, N;
-  const float* w;         // (k*Cin, N) tap-major rows; with w2, tap 0 only
-  const float* w2;        // (Cin, N) tap-1 rows of the upsample, or null
-  const float* b;         // bias, b[n % bias_mod]
+  const W* w;             // (k*Cin, N) tap-major rows; with w2, tap 0 only
+  const W* w2;            // (Cin, N) tap-1 rows of the upsample, or null
+  const W* b;             // bias, b[n % bias_mod]
   int bias_mod;
   const float* resid;     // y += resid[t, n], or null
   float* out;             // (T, N)
@@ -112,8 +132,9 @@ struct Conv {
   int tiles_m, tiles_n, ksplit, per;  // output tiles; K-chunk splits, chunks per split
 };
 
+template <typename W, typename S>
 struct Level {
-  Conv c[MAX_CONV];
+  Conv<W, S> c[MAX_CONV];
   int n_conv;
   float* part;   // PART floats per block
   int* tickets;  // one per output tile of the level, zero between launches
@@ -128,7 +149,8 @@ __device__ __forceinline__ unsigned long long global_ns() {
 
 // with `stamps`: the card's global time where the block starts (point 0),
 // starts its K loop after the wait and the tail (1), ends it (2) and exits (3)
-__device__ __forceinline__ void stamp(const Level& L, int point) {
+template <typename Lv>
+__device__ __forceinline__ void stamp(const Lv& L, int point) {
   if (L.stamps == nullptr) return;
   __syncthreads();
   if (threadIdx.x == 0) L.stamps[blockIdx.x * 4 + point] = global_ns();
@@ -138,34 +160,39 @@ __device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); 
 
 // An element of x from its raw loads v[m] (m < x_n): the branches' mean,
 // summed in branch order and then divided as the plain version does, then
-// SiLU.
-__device__ __forceinline__ float x_value(const Conv& a, const float (&v)[MAX_CONV]) {
+// SiLU, each rounded to the working type.
+template <typename Cv>
+__device__ __forceinline__ float x_value(const Cv& a, const float (&v)[MAX_CONV]) {
   float s = v[0];
   if (a.x_n > 1) {
 #pragma unroll
     for (int m = 1; m < MAX_CONV; ++m)
       if (m < a.x_n) s += v[m];
-    s /= (float)a.x_n;
+    s = Cv::act(s / (float)a.x_n);
   }
-  return a.silu ? silu_f(s) : s;
+  return a.silu ? Cv::act(silu_f(s)) : s;
 }
 
-__device__ __forceinline__ void load_x(const Conv& a, size_t o, float (&v)[MAX_CONV]) {
+template <typename Cv>
+__device__ __forceinline__ void load_x(const Cv& a, size_t o, float (&v)[MAX_CONV]) {
 #pragma unroll
   for (int m = 0; m < MAX_CONV; ++m)
     if (m < a.x_n) v[m] = a.x[m * a.x_stride + o];
 }
 
 // row r of [old tail; x], column c
-__device__ __forceinline__ float full_at(const Conv& a, int r, int c) {
-  if (r < a.rows) return a.tail[(size_t)r * a.Cin + c];
+template <typename Cv>
+__device__ __forceinline__ float full_at(const Cv& a, int r, int c) {
+  if (r < a.rows) return to_f(a.tail[(size_t)r * a.Cin + c]);
   float v[MAX_CONV];
   load_x(a, (size_t)(r - a.rows) * a.Cin + c, v);
   return x_value(a, v);
 }
 
-template <int TM, int TN>
+template <int TM, int TN, typename W, typename S>
 struct Tile {
+  using Cv = Conv<W, S>;
+  using Lv = Level<W, S>;
   static constexpr int MI = TM / 16, NJ = TN / 16;  // outputs a thread: rows, columns
   static constexpr int AP = TM + 2;  // A tile row pitch: the stores hit 32 banks
   static_assert(TM * TN <= PART && TM % 16 == 0 && TN % 16 == 0, "tile");
@@ -174,7 +201,7 @@ struct Tile {
   // [tail; x] at the taps: a tail value in ra[u][0], or the branch values
   // of an x row (bit u of `xrow`).  Nothing waits on them before they
   // are stored to shared memory, so all are in flight together.
-  static __device__ __forceinline__ void load_a(const Conv& a, int ch, int m0, int K,
+  static __device__ __forceinline__ void load_a(const Cv& a, int ch, int m0, int K,
                                                 int tid, float (&ra)[MI][MAX_CONV],
                                                 unsigned& xrow) {
     const int k0 = ch * KC;
@@ -187,7 +214,7 @@ struct Tile {
       if (k < K && gt < a.T) {
         const int j = k / a.Cin, c = k - j * a.Cin, r = gt + j * a.d;
         if (r < a.rows) {
-          ra[u][0] = a.tail[(size_t)r * a.Cin + c];
+          ra[u][0] = to_f(a.tail[(size_t)r * a.Cin + c]);
         } else {
           xrow |= 1u << u;
           load_x(a, (size_t)(r - a.rows) * a.Cin + c, ra[u]);
@@ -197,7 +224,7 @@ struct Tile {
   }
 
   // This thread's NJ B elements of K-chunk `ch`: weight rows.
-  static __device__ __forceinline__ void load_b(const Conv& a, int ch, int n0, int K,
+  static __device__ __forceinline__ void load_b(const Cv& a, int ch, int n0, int K,
                                                 int tid, float (&rb)[NJ]) {
     const int k0 = ch * KC;
 #pragma unroll
@@ -206,10 +233,10 @@ struct Tile {
       const int kk = i / TN, nn = i % TN, k = k0 + kk, n = n0 + nn;
       float v = 0.f;
       if (k < K && n < a.N) {
-        const float* row = (a.w2 != nullptr && k >= a.Cin)
-                               ? a.w2 + (size_t)(k - a.Cin) * a.N
-                               : a.w + (size_t)k * a.N;
-        v = __ldg(row + n);
+        const W* row = (a.w2 != nullptr && k >= a.Cin)
+                           ? a.w2 + (size_t)(k - a.Cin) * a.N
+                           : a.w + (size_t)k * a.N;
+        v = to_f(__ldg(row + n));
       }
       rb[u] = v;
     }
@@ -218,7 +245,7 @@ struct Tile {
   // One block's work item of conv `a`: output tile `tile` (the level's tile
   // tile0 + tile), K split q.  Inlined once per conv slot of the level, so
   // that every field of `a` is a fixed offset in the launch's parameters.
-  static __device__ __forceinline__ void conv_block(const Conv& a, const Level& L, int b,
+  static __device__ __forceinline__ void conv_block(const Cv& a, const Lv& L, int b,
                                                     int tile0, float (&As)[KC][AP],
                                                     float (&Bs)[KC][TN], int& am_last) {
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -243,7 +270,7 @@ struct Tile {
       const int total = a.rows_pad * a.Cin;
       for (int i = b * NT + tid; i < total; i += nb * NT) {
         const int r = i / a.Cin, c = i - r * a.Cin;
-        a.new_tail[i] = r < a.rows ? full_at(a, a.T + r, c) : a.tail[i];
+        a.new_tail[i] = r < a.rows ? from_f<S>(full_at(a, a.T + r, c)) : a.tail[i];
       }
     }
 
@@ -341,7 +368,7 @@ struct Tile {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int n = n0 + tx + 16 * j;
-      bias[j] = n < a.N ? a.b[n % a.bias_mod] : 0.f;
+      bias[j] = n < a.N ? to_f(a.b[n % a.bias_mod]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -357,8 +384,8 @@ struct Tile {
       for (int j = 0; j < NJ; ++j) {
         const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
         if (t >= a.T || n >= a.N) continue;
-        float y = acc[i][j] + bias[j];
-        if (a.resid != nullptr) y += res[i][j];
+        float y = Cv::act(acc[i][j] + bias[j]);
+        if (a.resid != nullptr) y = Cv::act(y + res[i][j]);
         if (a.tanh_out) y = tanhf(y);
         a.out[(size_t)t * a.N + n] = y;
       }
@@ -366,9 +393,10 @@ struct Tile {
   }
 };
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) level_kernel(const __grid_constant__ Level L) {
-  using Tl = Tile<TM, TN>;
+template <int TM, int TN, typename W, typename S>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    level_kernel(const __grid_constant__ Level<W, S> L) {
+  using Tl = Tile<TM, TN, W, S>;
   static_assert(TM * KC % NT == 0 && KC * TN % NT == 0, "whole loads per thread");
   __shared__ float As[KC][Tl::AP];
   __shared__ float Bs[KC][TN];
@@ -378,7 +406,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) level_kernel(const __grid_cons
   int b = blockIdx.x, tile0 = 0;
 #pragma unroll
   for (int ci = 0; ci < MAX_CONV; ++ci) {
-    const Conv& c = L.c[ci];
+    const Conv<W, S>& c = L.c[ci];
     const int nb = c.tiles_m * c.tiles_n * c.ksplit;
     if (ci == L.n_conv - 1 || b < nb) {
       Tl::conv_block(c, L, b, tile0, As, Bs, am_last);
@@ -389,33 +417,21 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) level_kernel(const __grid_cons
   }
 }
 
-cudaError_t launch_level(int tm, int tn, int blocks, cudaStream_t st, const Level& L) {
+template <typename W, typename S>
+cudaError_t launch_level(int tm, int tn, int blocks, cudaStream_t st, const Level<W, S>& L) {
   const dim3 g(blocks), t(NT);
-  if (tm == 16 && tn == 64) return launch_pdl(level_kernel<16, 64>, g, t, st, L);
-  if (tm == 32 && tn == 64) return launch_pdl(level_kernel<32, 64>, g, t, st, L);
-  if (tm == 64 && tn == 64) return launch_pdl(level_kernel<64, 64>, g, t, st, L);
-  if (tm == 64 && tn == 32) return launch_pdl(level_kernel<64, 32>, g, t, st, L);
+  if (tm == 16 && tn == 64) return launch_pdl(level_kernel<16, 64, W, S>, g, t, st, L);
+  if (tm == 32 && tn == 64) return launch_pdl(level_kernel<32, 64, W, S>, g, t, st, L);
+  if (tm == 64 && tn == 64) return launch_pdl(level_kernel<64, 64, W, S>, g, t, st, L);
+  if (tm == 64 && tn == 32) return launch_pdl(level_kernel<64, 32, W, S>, g, t, st, L);
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
-                                     const void* const* st_in, void* const* st_out,
-                                     const void* x, void* wav, int n_geo, void* scratch,
-                                     void* stamps, void* stream) {
-  if (n_geo < HDR) return (int)cudaErrorInvalidValue;
+template <typename W, typename S>
+int run(const int* geo, const void* const* w, const void* const* st_in, void* const* st_out,
+        const void* x, void* wav, void* scratch, void* stamps, cudaStream_t st) {
   const int n_level = geo[0], n_buf = geo[1];
   const long buf_elems = geo[2], part_elems = geo[3];
-  // the level records must fill `geo` exactly
-  int p = HDR;
-  for (int l = 0; l < n_level; ++l) {
-    if (p + LVL > n_geo || geo[p] < 1 || geo[p] > MAX_CONV) return (int)cudaErrorInvalidValue;
-    p += LVL + geo[p] * NF;
-  }
-  if (p != n_geo) return (int)cudaErrorInvalidValue;
-
-  const cudaStream_t st = (cudaStream_t)stream;
   float* bufs = (float*)scratch;
   float* part = bufs + n_buf * buf_elems;
   int* tickets = (int*)(part + part_elems);
@@ -425,9 +441,9 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
     if (id == 1) return (float*)wav;
     return bufs + (id - 2) * buf_elems;
   };
-  p = HDR;
+  int p = HDR;
   for (int l = 0; l < n_level; ++l) {
-    Level L = {};
+    Level<W, S> L = {};
     L.n_conv = geo[p];
     const int tm = geo[p + 1], tn = geo[p + 2];
     p += LVL;
@@ -438,9 +454,9 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
     int blocks = 0;
     for (int i = 0; i < L.n_conv; ++i, p += NF) {
       const int* f = geo + p;
-      Conv& a = L.c[i];
-      a.tail = (const float*)st_in[f[F_TAIL]] + f[F_TAIL_OFF];
-      a.new_tail = (float*)st_out[f[F_TAIL]] + f[F_TAIL_OFF];
+      Conv<W, S>& a = L.c[i];
+      a.tail = (const S*)st_in[f[F_TAIL]] + f[F_TAIL_OFF];
+      a.new_tail = (S*)st_out[f[F_TAIL]] + f[F_TAIL_OFF];
       a.rows = f[F_ROWS];
       a.rows_pad = f[F_ROWS_PAD];
       a.x = buf(f[F_X]);
@@ -452,9 +468,9 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
       a.k = f[F_K];
       a.d = f[F_D];
       a.N = f[F_N];
-      a.w = (const float*)w[f[F_W]] + f[F_W_OFF];
-      a.w2 = f[F_W2] < 0 ? nullptr : (const float*)w[f[F_W2]];
-      a.b = (const float*)w[f[F_B]] + f[F_B_OFF];
+      a.w = (const W*)w[f[F_W]] + f[F_W_OFF];
+      a.w2 = f[F_W2] < 0 ? nullptr : (const W*)w[f[F_W2]];
+      a.b = (const W*)w[f[F_B]] + f[F_B_OFF];
       a.bias_mod = f[F_BIAS_MOD];
       a.resid = buf(f[F_RESID]);
       a.out = buf(f[F_OUT]);
@@ -465,8 +481,29 @@ extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
       a.per = f[F_PER];
       blocks += a.tiles_m * a.tiles_n * a.ksplit;
     }
-    const cudaError_t e = launch_level(tm, tn, blocks, st, L);
+    const cudaError_t e = launch_level<W, S>(tm, tn, blocks, st, L);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" int svd_hifigan_head_step(const int* geo, const void* const* w,
+                                     const void* const* st_in, void* const* st_out,
+                                     const void* x, void* wav, int n_geo, void* scratch,
+                                     void* stamps, int w_bf16, int s_bf16, void* stream) {
+  if (n_geo < HDR) return (int)cudaErrorInvalidValue;
+  // the level records must fill `geo` exactly
+  int p = HDR;
+  for (int l = 0; l < geo[0]; ++l) {
+    if (p + LVL > n_geo || geo[p] < 1 || geo[p] > MAX_CONV) return (int)cudaErrorInvalidValue;
+    p += LVL + geo[p] * NF;
+  }
+  if (p != n_geo) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (w_bf16 && s_bf16) return run<bf16, bf16>(geo, w, st_in, st_out, x, wav, scratch, stamps, st);
+  if (w_bf16) return run<bf16, float>(geo, w, st_in, st_out, x, wav, scratch, stamps, st);
+  if (s_bf16) return run<float, bf16>(geo, w, st_in, st_out, x, wav, scratch, stamps, st);
+  return run<float, float>(geo, w, st_in, st_out, x, wav, scratch, stamps, st);
 }

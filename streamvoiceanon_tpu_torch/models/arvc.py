@@ -1,6 +1,6 @@
 """ARVC wrapper: content-token embedding and speaker conditioning around the
-dual-AR LM, with the streaming prefill and decode programs, as
-`streamvoiceanon_tpu.models.arvc`.
+dual-AR LM, with the offline `generate` and the streaming prefill and
+decode programs, as `streamvoiceanon_tpu.models.arvc`.
 
 The interleaved stream layout:
 
@@ -14,11 +14,11 @@ head, `dual_ar.init_state`); every program here runs on either.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from streamvoiceanon_tpu_torch.config import ARVCConfig, SamplingConfig
+from streamvoiceanon_tpu_torch.config import ARVCConfig, SamplingConfig, replace
 from streamvoiceanon_tpu_torch.models import dual_ar
 
 
@@ -119,3 +119,77 @@ def decode_one(params: Dict, cfg: ARVCConfig, state: ARVCState,
         params["model"], cfg.decoder, state.decode, emb2, sampling,
         gumbel_sem, gumbel_fast)
     return ARVCState(d, audio_emb, state.ref_tail_emb), codes
+
+
+def generate(params: Dict, cfg: ARVCConfig, ref_content: torch.Tensor,
+             ref_audio_codes: torch.Tensor, src_content: torch.Tensor,
+             style_vec: torch.Tensor, timbre: torch.Tensor,
+             sampling: SamplingConfig = SamplingConfig(), delay: int = 2,
+             cache_dtype=torch.float32, auto_cache_rows: bool = False,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Sequence[Tuple[Optional[torch.Tensor],
+                                            Optional[torch.Tensor]]]] = None
+             ) -> torch.Tensor:
+    """Full-utterance conversion: codec codes (B, nq, Ts), as the JAX
+    package's `arvc.generate`.  Prefills [spk | interleaved reference | the
+    first `delay` source conditions | the first remaining condition], takes
+    the first frame's codes from the fast stack on the last hidden (its
+    semantic sample is discarded), then one `dual_ar.decode_frame` per
+    further frame: the slow-step and fast-loop kernels at batch 1 under
+    their flags.
+
+    Sampled runs take their Gumbel noise from `noise`, one (semantic,
+    codebooks) pair per frame in `dual_ar.frame_noise_shapes`' shapes (the
+    first frame's semantic entry is unused), or else draw it on the device
+    from `generator`.  With `auto_cache_rows` the KV cache is sized to the
+    utterance as the JAX package sizes it; an utterance that needs more
+    rows than `max_seq_len` raises, as without it."""
+    dcfg = cfg.decoder
+    B, Ts = src_content.shape
+    dev = src_content.device
+    ref_cond = embed_content(params, ref_content)
+    src_cond = embed_content(params, src_content)
+    spk = spk_condition(params, style_vec, timbre)
+    w4s = params["wait4start"][None, :delay].expand(B, -1, -1)
+    w4e = params["wait4end"][None, :delay].expand(B, -1, -1)
+    ref_emb = torch.cat([w4s, dual_ar.embed_codes(params["model"], dcfg, ref_audio_codes)],
+                        dim=1)
+    prefill_cond = torch.cat([ref_cond, src_cond[:, :delay]], dim=1)
+    remaining = torch.cat([src_cond[:, delay:], w4e], dim=1)  # (B, Ts, D)
+    emb_seq = torch.cat([spk, _interleave(prefill_cond, ref_emb), remaining[:, :1]], dim=1)
+    L = emb_seq.shape[1]
+    rows = L + 2 * (Ts - 1)  # the prefill's rows, then 2 a frame
+    need = rows + 2 if auto_cache_rows else rows  # the JAX package's slack
+    if need > dcfg.max_seq_len:
+        raise ValueError(f"generate: the utterance needs {need} cache rows (a {L}-row "
+                         f"prompt and {Ts} frames), more than max_seq_len "
+                         f"{dcfg.max_seq_len}")
+    if auto_cache_rows:
+        dcfg = replace(dcfg, max_seq_len=min(dcfg.max_seq_len, -(-need // 64) * 64))
+    shapes = dual_ar.frame_noise_shapes(params["model"], dcfg, sampling, B)
+
+    def frame_noise(f: int):
+        if sampling.greedy:
+            return None, None
+        if noise is not None:
+            return noise[f]
+        return tuple(gumbel(s, generator, dev) for s in shapes)
+
+    state = dual_ar.init_state(dcfg, batch=B, cache_dtype=cache_dtype, device=dev)
+    state, last = dual_ar.prefill(params["model"], dcfg, state, emb_seq)
+    codes, audio_emb, _ = dual_ar.fast_codes(
+        params["model"], dcfg, dual_ar._project_fast(params["model"], last),
+        frame_noise(0)[1], sampling)
+    frames = [codes]
+    for f in range(1, Ts):
+        emb2 = torch.cat([audio_emb.to(remaining.dtype), remaining[:, f : f + 1]], dim=1)
+        state, _, codes, audio_emb = dual_ar.decode_frame(
+            params["model"], dcfg, state, emb2, sampling, *frame_noise(f))
+        frames.append(codes)
+    return torch.stack(frames, dim=-1)
+
+
+def gumbel(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Gumbel noise -log(-log(U)) of `shape`, drawn on `device`."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))

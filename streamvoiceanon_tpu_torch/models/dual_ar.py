@@ -313,18 +313,27 @@ def decode_frame(
         semantic, flag = sample_token(logits, gumbel_sem, top_k_window=sampling.top_k_window,
                                       with_flag=True, **samp)
         trunc = trunc + flag.sum(dtype=torch.int32)
-    hidden = _project_fast(params, last)
-    if fast_kernel_runs(cfg, B):
+    codes, audio_emb, fast_trunc = fast_codes(params, cfg, _project_fast(params, last),
+                                              gumbel_fast, sampling)
+    return (DecodeState(state.k_cache, state.v_cache, pos + 2, trunc + fast_trunc), semantic,
+            codes, audio_emb)
+
+
+def fast_codes(params: Dict, cfg: DualARConfig, hidden: torch.Tensor,
+               gumbel_fast: Optional[torch.Tensor], sampling: SamplingConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The codebook loop on the fast stack's input hidden (B, 1, fast_dim):
+    the fast-loop kernel at batch 1 under its flag, the plain loop
+    otherwise.  Returns (codes (B, nq), the next frame's summed codebook
+    embedding (B, 1, dim), the loop's nucleus truncations)."""
+    if fast_kernel_runs(cfg, hidden.shape[0]):
         codes, aemb = fast_decode(
             params["fast_layers"], params["fast_norm"]["w"], params["fast_output"]["w"],
             params["fast_embeddings"], params["codebook_embeddings"], hidden[:, 0],
             gumbel_fast, nq=cfg.num_codebooks, n_head=cfg.fast_n_head,
             head_dim=cfg.fast_head_dim, norm_eps=cfg.norm_eps, rope_base=cfg.rope_base,
-            **samp)
-        audio_emb = aemb[:, None].to(params["codebook_embeddings"].dtype)
-    else:
-        codes, fast_trunc = _fast_loop(params, cfg, hidden, gumbel_fast, sampling)
-        trunc = trunc + fast_trunc
-        audio_emb = embed_codes(params, cfg, codes[:, :, None])
-    return (DecodeState(state.k_cache, state.v_cache, pos + 2, trunc), semantic, codes,
-            audio_emb)
+            **_sampler_args(sampling))
+        zero = torch.zeros((), dtype=torch.int32, device=hidden.device)
+        return codes, aemb[:, None].to(params["codebook_embeddings"].dtype), zero
+    codes, trunc = _fast_loop(params, cfg, hidden, gumbel_fast, sampling)
+    return codes, embed_codes(params, cfg, codes[:, :, None]), trunc

@@ -104,3 +104,26 @@ def hifigan_apply_stream(p: Dict, cfg: HiFiGANConfig, state, x: torch.Tensor,
     new_state["conv_post"], x = convops.causal_conv1d_stream(
         state["conv_post"], F.silu(x), p["conv_post"]["w"], p["conv_post"]["b"])
     return new_state, torch.tanh(x)[..., 0]
+
+
+def resblock_apply(p: Dict, x: torch.Tensor, dilations) -> torch.Tensor:
+    """One ResBlock over a whole sequence x (B, T, C)."""
+    for c1, c2, d in zip(p["convs1"], p["convs2"], dilations):
+        h = convops.causal_conv1d(F.silu(x), c1["w"], c1["b"], dilation=d)
+        h = convops.causal_conv1d(F.silu(h), c2["w"], c2["b"], dilation=d)
+        x = x + h
+    return x
+
+
+def hifigan_apply(p: Dict, cfg: HiFiGANConfig, x: torch.Tensor) -> torch.Tensor:
+    """The head over a whole sequence: x (B, T, num_mels) -> waveform (B, T *
+    hop_length) in [-1, 1]."""
+    x = convops.causal_conv1d(x, p["conv_pre"]["w"], p["conv_pre"]["b"])
+    for i, stride in enumerate(cfg.upsample_rates):
+        x = convops.fish_trans_conv1d(F.silu(x), p["ups"][i]["w"], p["ups"][i]["b"],
+                                      stride=stride)
+        branches = [resblock_apply(rb, x, rd)
+                    for rb, rd in zip(p["resblocks"][i], cfg.resblock_dilation_sizes)]
+        x = sum(branches) / len(branches)
+    x = convops.causal_conv1d(F.silu(x), p["conv_post"]["w"], p["conv_post"]["b"])
+    return torch.tanh(x)[..., 0]

@@ -18,7 +18,9 @@ between the two layouts.  The ring has one of two layouts:
   batched form otherwise.  `convert_ring_layout` moves a live ring between
   the two.
 
-Either way the stream equals offline encoding for any stream length.
+With `WindowedTransformerConfig.dw_conv` the ring keeps the rotated frame
+and carries the LConv1d branch's tail (`RingState.conv_tail`).  Either way
+the stream equals offline encoding for any stream length.
 
 Chunk unit: one 2048-sample frame -> 4 mel hops -> 1 content token.
 """
@@ -26,14 +28,14 @@ Chunk unit: one 2048-sample frame -> 4 mel hops -> 1 content token.
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from streamvoiceanon_tpu_torch.config import TokenizerConfig, WindowedTransformerConfig
-from streamvoiceanon_tpu_torch.models import convnext
+from streamvoiceanon_tpu_torch.models import convnext, windowed_transformer
 from streamvoiceanon_tpu_torch.ops import conv as convops
 from streamvoiceanon_tpu_torch.ops import convnext_enc as encops
 from streamvoiceanon_tpu_torch.ops import quantizers, stft
@@ -123,6 +125,9 @@ class RingState(NamedTuple):
     k_ring: torch.Tensor
     v_ring: torch.Tensor  # same layout as k_ring
     count: int  # tokens seen so far (host counter: the trajectory is known)
+    # with dw_conv, (L, B, K - 1, dim) the LConv1d branch's GLU outputs of
+    # the last K - 1 tokens (zeros at first: the offline left zero pad)
+    conv_tail: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=8)
@@ -143,15 +148,15 @@ def _rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
 
 def ring_init(cfg: WindowedTransformerConfig, batch: int = 1, dtype=torch.float32,
               device=None) -> RingState:
-    if cfg.dw_conv:
-        raise NotImplementedError("the LConv1d branch (dw_conv) is not ported yet")
     W = cfg.window_size
-    if cfg.use_pallas_stream:
+    if cfg.use_pallas_stream and not cfg.dw_conv:
         shape = (cfg.n_layer, batch, W, cfg.n_head * cfg.head_dim)
-    else:
+    else:  # dw_conv keeps the rotated frame: its branch runs there
         shape = (cfg.n_layer, batch, cfg.n_head, W, cfg.head_dim)
+    conv_tail = (torch.zeros((cfg.n_layer, batch, cfg.conv_kernel_size - 1, cfg.dim),
+                             dtype=dtype, device=device) if cfg.dw_conv else None)
     return RingState(torch.zeros(shape, dtype=dtype, device=device),
-                     torch.zeros(shape, dtype=dtype, device=device), 0)
+                     torch.zeros(shape, dtype=dtype, device=device), 0, conv_tail)
 
 
 def _roll_w(r: torch.Tensor, shift: int) -> torch.Tensor:
@@ -223,12 +228,11 @@ def transformer_stream_step(params: Dict, cfg: WindowedTransformerConfig,
     valid = age <= min(state.count, W - 1)
     k_new = torch.empty_like(state.k_ring)
     v_new = torch.empty_like(state.v_ring)
+    ct_new = None if state.conv_tail is None else torch.empty_like(state.conv_tail)
     h = x
     B = h.shape[0]
     for l in range(cfg.n_layer):
-        # layer l of the stacked tree
-        lp = {name: t[l] if torch.is_tensor(t) else {"w": t["w"][l]}
-              for name, t in layers.items()}
+        lp = windowed_transformer.layer(layers, l)
         hn = rms_norm(h, lp["attention_norm"]["w"], cfg.norm_eps)
         q, k, v = torch.chunk(hn @ lp["wqkv"]["w"], 3, dim=-1)
         # rotate every cached key one step into the past, then append the
@@ -244,11 +248,23 @@ def transformer_stream_step(params: Dict, cfg: WindowedTransformerConfig,
         w = torch.softmax(scores, dim=-1).to(h.dtype)
         out = (w @ v_ring.to(h.dtype)).reshape(B, 1, H * D)
         h = h + lp["attn_scale"] * (out @ lp["wo"]["w"])
+        if cfg.dw_conv:
+            # the LConv1d branch on one token: its causal depthwise conv
+            # needs only the GLU outputs of the previous K - 1 tokens
+            lc = lp["lconv"]
+            a, b = torch.chunk(rms_norm(h, lc["pre_norm"]["w"], cfg.norm_eps)
+                               @ lc["w_start"]["w"], 2, dim=-1)
+            full = torch.cat([state.conv_tail[l].to(h.dtype), a * torch.sigmoid(b)], dim=1)
+            yc = torch.einsum("bkc,kc->bc", full.float(),
+                              lc["dw"]["w"][:, 0, :].float()).to(h.dtype)[:, None]
+            yc = F.silu(rms_norm(yc, lc["conv_norm"]["w"], cfg.norm_eps)) @ lc["w_end"]["w"]
+            h = h + lc["scale"] * yc
+            ct_new[l] = full[:, 1:]
         f = rms_norm(h, lp["ffn_norm"]["w"], cfg.norm_eps)
         f = (F.silu(f @ lp["w1"]["w"]) * (f @ lp["w3"]["w"])) @ lp["w2"]["w"]
         h = h + lp["ffn_scale"] * f
     h = rms_norm(h, params["final_norm"]["w"], cfg.norm_eps)
-    return RingState(k_new, v_new, state.count + 1), h
+    return RingState(k_new, v_new, state.count + 1, ct_new), h
 
 
 # ---------------------------------------------------------------------------

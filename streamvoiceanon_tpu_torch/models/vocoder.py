@@ -1,5 +1,7 @@
-"""Firefly codec decode side, streaming form, as
-`streamvoiceanon_tpu.models.vocoder` (`init_stream_state`, `decode_stream`).
+"""Firefly codec, as `streamvoiceanon_tpu.models.vocoder`: `encode` (log-mel
+-> ConvNeXt encoder -> stride-f downsample stages -> grouped residual FSQ),
+the offline `decode_codes` / `decode`, and the streaming decode
+(`init_stream_state`, `decode_stream`).
 
 codes -> grouped residual FSQ decode -> two stride-2 causal upsampling
 stages (transposed conv + ConvNeXt block) -> HiFiGAN head -> 2048 samples
@@ -11,7 +13,7 @@ fused head kernel on its packed state, with the weights packed once into
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -19,7 +21,48 @@ from streamvoiceanon_tpu_torch.config import VocoderConfig
 from streamvoiceanon_tpu_torch.models import convnext, hifigan
 from streamvoiceanon_tpu_torch.ops import conv as convops
 from streamvoiceanon_tpu_torch.ops import hifigan as headops
-from streamvoiceanon_tpu_torch.ops import quantizers
+from streamvoiceanon_tpu_torch.ops import quantizers, stft
+
+
+def _downsample(p, x: torch.Tensor, factors) -> torch.Tensor:
+    for stage, f in zip(p, factors):
+        x = convops.causal_conv1d(x, stage["conv"]["w"], stage["conv"]["b"], stride=f)
+        x = convnext.convnext_block_apply(stage["block"], x)
+    return x
+
+
+def _upsample(p, x: torch.Tensor, factors) -> torch.Tensor:
+    # the reference builds its upsample stack over reversed(factors)
+    for stage, f in zip(p, reversed(factors)):
+        x = convops.fish_trans_conv1d(x, stage["conv"]["w"], stage["conv"]["b"], stride=f)
+        x = convnext.convnext_block_apply(stage["block"], x)
+    return x
+
+
+def encode(params: Dict, cfg: VocoderConfig, wav: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wav (B, T) -> (codes (B, n_codebooks, T // 2048) int32, quantized
+    latents (B, T // 2048, input_dim))."""
+    mel = stft.log_mel_spectrogram(wav, cfg.mel)
+    feat = convnext.convnext_encoder_apply(params["backbone"], cfg.backbone, mel)
+    z = _downsample(params["downsample"], feat, cfg.quantizer.downsample_factor)
+    quantized, idx = quantizers.grouped_residual_fsq_encode(
+        params["fsq"], z, cfg.quantizer.n_groups, cfg.quantizer.levels,
+        cfg.quantizer.n_codebooks)
+    return idx.transpose(1, 2), quantized
+
+
+def decode_codes(params: Dict, cfg: VocoderConfig, codes: torch.Tensor) -> torch.Tensor:
+    """codes (B, n_codebooks, T') -> the quantizer's output (B, T' * 4, input_dim)."""
+    z = quantizers.grouped_residual_fsq_decode(
+        params["fsq"], codes.transpose(1, 2), cfg.quantizer.n_groups, cfg.quantizer.levels,
+        cfg.quantizer.n_codebooks)
+    return _upsample(params["upsample"], z, cfg.quantizer.downsample_factor)
+
+
+def decode(params: Dict, cfg: VocoderConfig, codes: torch.Tensor) -> torch.Tensor:
+    """codes (B, n_codebooks, T') -> wav (B, T' * 2048)."""
+    return hifigan.hifigan_apply(params["head"], cfg.head, decode_codes(params, cfg, codes))
 
 
 def init_stream_state(params: Dict, cfg: VocoderConfig, batch: int = 1,

@@ -36,8 +36,8 @@ SIGNATURES = {
     "fast_decode": ("svd_fast_decode",
                     [_I] + [_P] * 25 + [_I] * 10 + [_F] * 4 + [_I, _P]),
     "wt_stream": ("svd_wt_stream_step", [_I, _I] + [_P] * 21 + [_I] * 10 + [_F, _F, _P]),
-    "hifigan_head": ("svd_hifigan_head_step", [_P] * 6 + [_I] + [_P] * 3),
-    "convnext_enc": ("svd_convnext_enc_step", [_P, _I, _P, _I] + [_P] * 10 + [_I, _P]),
+    "hifigan_head": ("svd_hifigan_head_step", [_P] * 6 + [_I] + [_P] * 2 + [_I] * 2 + [_P]),
+    "convnext_enc": ("svd_convnext_enc_step", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 10 + [_P]),
     "decode_attention": ("svd_decode_attention", [_I] + [_P] * 8 + [_I] * 7 + [_F, _P]),
 }
 # further entry points, by name: (source, C signature)

@@ -11,9 +11,11 @@ final LN, then per downsample a stride-f conv of kernel f and one block.
 Every depthwise tail lives in `PackedEncState`, the JAX package's layout:
 8-row slots (rows k-1 .. 7 stay as they are), a stem buffer (B, 8, C_in),
 one (B, depth*8, C_i) buffer per stage and a (B, n_down*8, C_q) buffer for
-the downsample blocks.  `pack_enc_state` / `unpack_enc_state` convert to
-and from the dict layout of `models/tokenizer_stream.py`, where batch > 1
-runs.
+the downsample blocks, every leaf a view of one flat buffer in that order
+(`init_packed_state`, `pack_enc_state` and every call's output state), which
+the kernel reads and writes as one.  `pack_enc_state` / `unpack_enc_state`
+convert to and from the dict layout of `models/tokenizer_stream.py`, where
+batch > 1 runs.
 
 What bounds the kernel on the card: bytes and latency.  At the published
 width (stem 160 -> 128, blocks 3-3-9-3 at 128/256/384/512, two 512-wide
@@ -24,56 +26,72 @@ sequence, and each moves 0.1 to 4.2 MB, so a design of one launch each
 pays a launch and a drain per product.
 
 The design (csrc/convnext_enc.cu): one cooperative launch a call, one
-block per SM (`encoder_front_step.launches` counts one a call of at most 4
-frames).  The TPU kernel's program order becomes grid barriers between
-the phases `phases` lists, 46 and 45 barriers at the published geometry:
+block per SM (`encoder_front_step.launches` counts one a launch of at
+most `launch_frames` frames).  The TPU kernel's program order becomes grid
+barriers between the phases `phases` lists, 46 and 45 barriers at the
+published geometry:
 
     stem  im2col of [tail; mel], the stem product + bias
     P     a block's depthwise conv + bias + LN (the stem LN first in the
-          first block of stage 0), pw1 + bias + GELU into g
+          phase after the stem), pw1 + bias + GELU into g
     Q     g @ pw2 + bias, times gamma, plus x, in place (the last: into z)
     M     a transition: LN, then the 1x1 product + bias
     D     a downsample: (final LN,) the rows viewed as (T/f, f C) times
           the tap-major weight + bias
+    L     only without a downsample: the final LN into z
 
-Every block reads a phase's whole input rows (at most 4 of at most 2048
-floats) and recomputes the row-wise steps itself, one column a thread (so
-rows are at most 512 wide); it then owns fixed runs of 16-byte column
-units of the phase's product (`work_plan`, the rule of `column_plan` in
-ops/decode_common.py) and sums each column of each row over the whole K
-in a fixed order, every weight load serving all rows: no split-K
-partials, no tickets, and the result does not depend on block timing.  The matrices are unit-packed once per parameter tree
-(`unit_weights`, `tokenizer_params["enc_units"]`, made by
-`params.Converter` beside `enc_packed`).  The barriers guard: stem -> P
-the stem rows; P -> Q the whole g, and P's reads of x before Q writes its
-columns in place; Q -> next phase the whole x, and Q's reads of g before
-the next P writes it; M -> P and D -> P the product's rows, which go to
-the other activation buffer because other blocks still read x in that
-phase.  The activation buffers, g and the plan are kept across calls
-(`kept_scratch`); the output state and z are new each call and the input
-state is only read, so a call is one device launch.
-`encoder_front_step_timeline` stamps each block's entry to each phase, the
-start of its product and its exit with the card's global timer.  A chunk of more than 4 frames
-runs as consecutive launches of at most 4 (the front is causal, so the
-result is the same).
+Every block reads a phase's whole input rows into shared memory and
+recomputes the row-wise steps itself, thread c taking columns c, c + 512,
+...; it then owns fixed runs of 4-column units of the phase's product
+(`work_plan`, the rule of `column_plan` in ops/decode_common.py) and sums
+each column of each row over the whole K in a fixed order, every weight
+load serving four rows: no split-K partials, no tickets, and the result
+does not depend on block timing.  The matrices are unit-packed once per
+parameter tree (`unit_weights`, `tokenizer_params["enc_units"]`, made by
+`params.Converter` beside `enc_packed`), the last unit of a width that is
+no multiple of 4 zero-padded.  The phases come to the kernel as a table of
+records (`_table`: weight pointers, then per phase its matrix, K, N,
+width, kind, weights, block, tail slot, factor and flags), copied to the
+card once per weight tree and geometry, so no count of stages,
+downsamples or phases is capped; the row buffers and shared memory follow
+the plan (`_sizes`), and `_checked` refuses only what the JAX kernel
+refuses and a block whose shared memory would overflow.  A launch takes
+whole downsample groups (4 frames, or the product where it is larger).
+The barriers guard: stem -> P the stem rows; P -> Q the whole g, and P's
+reads of x before Q writes its columns in place; Q -> next phase the whole
+x, and Q's reads of g before the next P writes it; M -> P and D -> P the
+product's rows, which go to the other activation buffer because other
+blocks still read x in that phase.  The activation buffers, g and the plan
+are kept across calls (`kept_scratch`); the output state and z are new
+each call and the input state is only read, so a call is one device
+launch.  `encoder_front_step_timeline` stamps each block's entry to each
+phase, the start of its product and its exit with the card's global
+timer.  A longer chunk runs as consecutive launches (the front is causal,
+so the result is the same).
 
-On the H100 a call takes about 0.25 ms against the parent design's 0.56
-to 0.65 (PERF.md §6): 45 barriers of about 1 us, P phases of 5 to 7.5 us
-(the rows' loads, the depthwise conv and two block reductions before the
-product) and Q phases of 3 to 4.5 us.  Without any weight traffic the
-same launch takes about 0.21 ms, so the skeleton of dependent steps, not
-the weight stream, bounds it.
+Weights W and tails S are each float32 or bf16, as the TPU kernel takes
+them: activations hold values of W, tails are stored as S, and the rounding
+points below round to W (a no-op in float32).
+
+On the H100 the register design took about 0.25 ms a call (PERF.md §6): 45
+barriers of about 1 us, P phases of 5 to 7.5 us (the rows' loads, the
+depthwise conv and two block reductions before the product) and Q phases
+of 3 to 4.5 us.  Without any weight traffic the same launch takes about
+0.21 ms, so the skeleton of dependent steps, not the weight stream, bounds
+it.  Its hot code has to stay small: it runs from the instruction cache,
+kind after kind (PERF.md §6).
 
 The plain version repeats the TPU kernel's arithmetic and rounding points
 (after the depthwise conv + bias, after each LN, after each pointwise +
-bias, after GELU, after the LayerScale product).  GELU is exact erf: the
-TPU kernel's polynomial erf exists only because Mosaic cannot lower
+bias, after GELU, after the LayerScale product and the residual sum), in
+the weights' dtype; the concatenation of a tail with new rows promotes to
+promote(S, W), as the TPU kernel's does.  GELU is exact erf: the TPU
+kernel's polynomial erf exists only because Mosaic cannot lower
 `lax.erf`.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -104,34 +122,29 @@ class PackedEncState(NamedTuple):
 
 def init_packed_state(cfg: TokenizerConfig, batch: int = 1, dtype=torch.float32,
                       device=None) -> PackedEncState:
-    bb = cfg.backbone
-    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
-    return PackedEncState(
-        stem=z(batch, SLOT, bb.input_channels),
-        stages=tuple(z(batch, d * SLOT, c) for d, c in zip(bb.depths, bb.dims)),
-        down=z(batch, len(cfg.quantizer.downsample_factor) * SLOT, cfg.quantizer.input_dim),
-    )
+    """Zero tails, every leaf a view of one flat buffer (`state_sizes`
+    order), the layout the kernel reads without a copy."""
+    flat = torch.zeros(batch * sum(state_sizes(cfg)), dtype=dtype, device=device)
+    return _views(flat, cfg, batch)
 
 
-def _put_slots(B: int, C: int, tails: List[torch.Tensor], dtype, device) -> torch.Tensor:
-    buf = torch.zeros((B, len(tails) * SLOT, C), dtype=dtype, device=device)
+def _put_slots(buf: torch.Tensor, tails: List[torch.Tensor]) -> None:
     for i, t in enumerate(tails):
-        buf[:, i * SLOT : i * SLOT + t.shape[1]] = t.to(dtype)
-    return buf
+        buf[:, i * SLOT : i * SLOT + t.shape[1]] = t.to(buf.dtype)
 
 
 def pack_enc_state(backbone_state: Dict, down_states, cfg: TokenizerConfig) -> PackedEncState:
-    """Dict layout (`models/tokenizer_stream.py`) -> packed.  `down_states` is
-    the TokenizerStreamState.down tuple ({"conv": ConvState, "block":
+    """Dict layout (`models/tokenizer_stream.py`) -> packed, its leaves views
+    of one buffer (`init_packed_state`).  `down_states` is the
+    TokenizerStreamState.down tuple ({"conv": ConvState, "block":
     ConvState})."""
     stem = backbone_state["stem"].tail
-    B, dtype, dev = stem.shape[0], stem.dtype, stem.device
-    stages = tuple(
-        _put_slots(B, c, [st.tail for st in backbone_state["stages"][i]], dtype, dev)
-        for i, c in enumerate(cfg.backbone.dims))
-    down = _put_slots(B, cfg.quantizer.input_dim, [st["block"].tail for st in down_states],
-                      dtype, dev)
-    return PackedEncState(_put_slots(B, stem.shape[2], [stem], dtype, dev), stages, down)
+    out = init_packed_state(cfg, stem.shape[0], stem.dtype, stem.device)
+    _put_slots(out.stem, [stem])
+    for buf, stage in zip(out.stages, backbone_state["stages"]):
+        _put_slots(buf, [st.tail for st in stage])
+    _put_slots(out.down, [st["block"].tail for st in down_states])
+    return out
 
 
 def unpack_enc_state(packed: PackedEncState, cfg: TokenizerConfig):
@@ -227,7 +240,8 @@ def _block(x: torch.Tensor, sp: Dict, bi: int, tail: torch.Tensor, k: int):
     block's new tail rows)."""
     T, C = x.shape
     dt = x.dtype
-    full = torch.cat([tail[: k - 1].to(dt), x])
+    pt = torch.promote_types(tail.dtype, dt)  # the TPU kernel's concatenation promotes
+    full = torch.cat([tail[: k - 1].to(pt), x.to(pt)])
     dw = sp["dw_w"][bi].float()
     acc = torch.zeros((T, C), dtype=torch.float32, device=x.device)
     for j in range(k):
@@ -259,7 +273,8 @@ def encoder_front_step_plain(pw: Dict, state: PackedEncState, mel: torch.Tensor,
     x = mel[0].to(dt)
     T = x.shape[0]
     stem_tail = state.stem[0]
-    full = torch.cat([stem_tail[: k - 1].to(dt), x])
+    pt = torch.promote_types(stem_tail.dtype, dt)
+    full = torch.cat([stem_tail[: k - 1].to(pt), x.to(pt)])
     stem_out = _splice(stem_tail, [full[T : T + k - 1]])
     cols = torch.cat([full[j : j + T] for j in range(k)], dim=1)
     x = (cols.float() @ pw["stem_w"].float() + pw["stem_b"].float()).to(dt)
@@ -293,18 +308,24 @@ def encoder_front_step_plain(pw: Dict, state: PackedEncState, mel: torch.Tensor,
 # The kernel's plan (csrc/convnext_enc.cu)
 # ---------------------------------------------------------------------------
 
-ROWS = 4  # rows of one launch, at most (ROWS in csrc/convnext_enc.cu)
-UNIT = 4  # float32 columns of one 16-byte plan unit
-THREADS = 512  # PK_THREADS (csrc/decode_common.cuh): the widest row, one column a thread
-MAX_STAGES, MAX_DOWN, MAX_PHASES = 8, 4, 96
-EPILOGUE_INPUTS = 2 + ROWS  # a column's bias, LayerScale and residual rows (EPV)
+ROWS = 4  # rows of one pass of the kernel's matvec (RG in csrc/convnext_enc.cu)
+THREADS = 512  # the kernel's threads (FT): a narrow geometry's widest row
+UNIT = 4  # columns of one plan unit (16 bytes of a float32 weight row, 8 of bf16)
+PHASE_FIELDS = 13  # int64 of a phase record (PH_FIELDS in csrc/convnext_enc.cu)
+# the narrow build's most phases: their records' integer fields (K .. flags)
+# go in its launch parameters (PH_PARAMS)
+NARROW_PHASES = 96
+KINDS = {"stem": 0, "P": 1, "Q": 2, "M": 3, "D": 4, "L": 5}  # PhaseKind
+FL_STEM_LN, FL_FINAL_LN, FL_TO_Z = 1, 2, 4  # PhaseFlag
+_TYPES = (torch.float32, torch.bfloat16)  # of the weights and of the state, each
 
 
 class Phase(NamedTuple):
     """One phase of the kernel: its kind ("stem", "P", "Q", "M" for a
-    transition, "D" for a downsample), where it runs ("s2b4": stage 2 block
-    4; "m1": the transition into stage 1; "d0": downsample 0, "d0b" its
-    block) and its product's K and N."""
+    transition, "D" for a downsample, "L" for the final LN where there is
+    no downsample), where it runs ("s2b4": stage 2 block 4; "m1": the
+    transition into stage 1; "d0": downsample 0, "d0b" its block) and its
+    product's K and N (L: K 0, N the row width)."""
 
     kind: str
     where: str
@@ -332,6 +353,8 @@ def _phases(key: Tuple) -> Tuple[Phase, ...]:
         out += [Phase("D", f"d{i}", f * c, cq), Phase("P", f"d{i}b", cq, 4 * cq),
                 Phase("Q", f"d{i}b", 4 * cq, cq)]
         c = cq
+    if not factors:
+        out.append(Phase("L", "final", 0, c))
     return tuple(out)
 
 
@@ -343,7 +366,7 @@ def phases(cfg: TokenizerConfig) -> List[Phase]:
 @functools.lru_cache(maxsize=16)
 def _work_plan(key: Tuple, n_blocks: int) -> np.ndarray:
     ph = _phases(key)
-    return column_plan([p.N // UNIT for p in ph], [p.K * 16 for p in ph], n_blocks)
+    return column_plan([-(-p.N // UNIT) for p in ph], [p.K * 16 for p in ph], n_blocks)
 
 
 def work_plan(cfg: TokenizerConfig, n_blocks: int) -> np.ndarray:
@@ -356,45 +379,81 @@ def widest(cfg: TokenizerConfig) -> int:
     return max(*cfg.backbone.dims, cfg.quantizer.input_dim)
 
 
-def check_kernel_geometry(cfg: TokenizerConfig) -> None:
-    """Raise on a geometry the kernel does not take."""
-    _checked(_geo_key(cfg))
+def _rows(key: Tuple) -> Tuple[int, int]:
+    """(frames of one launch at most, rows of the kernel's row buffers): a
+    launch takes whole downsample groups, as many as fit in ROWS frames and
+    at least one, and the buffers hold them in whole passes of ROWS."""
+    factor = math.prod(key[5])
+    step = max(ROWS // factor, 1) * factor
+    return step, -(-step // ROWS) * ROWS
 
 
-@functools.lru_cache(maxsize=16)
-def _checked(key: Tuple) -> bool:
-    cin, k, depths, dims, cq, factors = key
-    wide = max(*dims, cq)
-    smem = 4 * (ROWS * max(p.K for p in _phases(key)) + EPILOGUE_INPUTS * THREADS)
-    if (not 1 <= len(depths) <= MAX_STAGES or not 1 <= len(factors) <= MAX_DOWN
-            or min(depths) < 1 or any(c % UNIT for c in (*dims, cq))
-            or max(wide, cin) > THREADS or math.prod(factors) > ROWS or k > SLOT + 1
-            or len(_phases(key)) > MAX_PHASES or smem > MAX_SMEM):
-        raise ValueError(f"encoder_front_step: unsupported geometry (C_in {cin}, depths "
-                         f"{depths}, dims {dims}, C_q {cq}, downsample {factors}): every "
-                         f"stage at least one block, widths multiples of {UNIT} and at most "
-                         f"{THREADS}, prod(downsample) <= {ROWS}")
-    return True
+def launch_frames(cfg: TokenizerConfig) -> int:
+    """Frames one launch takes at most; a longer chunk runs as several."""
+    return _rows(_geo_key(cfg))[0]
 
 
 @functools.lru_cache(maxsize=32)
-def _geometry(key: Tuple, T: int) -> ctypes.Array:
-    """The `geo` int array of csrc/convnext_enc.cu: an 8-int header (T,
-    C_in, k, stages, downsamples, C_q, phases, widest), then (depth, C) per
-    stage, then the factor per downsample."""
+def _sizes(key: Tuple, n_blocks: int) -> Dict[str, int]:
+    """The kernel's shared-memory parts in elements: `rows` x `max_k` row
+    floats, `pre_c` x SLOT tail-row floats (the wide build's), (2 + rows) x
+    `ep_cols` epilogue floats, `n_tab` int64 of the table; `bytes`, the
+    whole; and `wide`, whether the geometry takes the wide build."""
     cin, k, depths, dims, cq, factors = key
-    geo = [T, cin, k, len(depths), len(factors), cq, len(_phases(key)), max(*dims, cq)]
-    for d, c in zip(depths, dims):
-        geo += [d, c]
-    geo += list(factors)
-    return (ctypes.c_int * len(geo))(*geo)
+    ph = _phases(key)
+    rows = _rows(key)[1]
+    max_k = max(max(p.K for p in ph), max(*dims, cq, cin))
+    pre_c = max(*dims, cq)
+    ep_cols = UNIT * int(_work_plan(key, n_blocks)[:, :, 1].max())
+    # the narrow build holds a column of every row in registers: rows at
+    # most THREADS wide and multiples of UNIT, one pass of ROWS rows, at
+    # most THREADS columns a block (its epilogue inputs THREADS apart), at
+    # most NARROW_PHASES phases; any other geometry takes the wide build
+    wide = int(pre_c > THREADS or rows > ROWS or ep_cols > THREADS
+               or any(c % UNIT for c in (*dims, cq)) or len(ph) > NARROW_PHASES)
+    ep_cols = max(ep_cols, 1) if wide else THREADS
+    pre_c = pre_c if wide else 0  # the tail rows stage in shared memory in the wide build
+    n_tab = 2 + PHASE_FIELDS * len(ph)
+    nbytes = (8 * (n_tab + n_tab % 2)
+              + 4 * (SLOT * pre_c + rows * max_k + (2 + rows) * ep_cols))
+    return {"rows": rows, "max_k": max_k, "pre_c": pre_c, "ep_cols": ep_cols,
+            "n_tab": n_tab, "bytes": nbytes, "wide": wide}
+
+
+def smem_bytes(cfg: TokenizerConfig, n_blocks: int) -> int:
+    """Dynamic shared memory of one block of the kernel at this geometry."""
+    return _sizes(_geo_key(cfg), n_blocks)["bytes"]
+
+
+def check_kernel_geometry(cfg: TokenizerConfig, n_blocks: int = 132) -> None:
+    """Raise on a geometry the kernel does not take (on `n_blocks` SMs)."""
+    _checked(_geo_key(cfg), n_blocks)
+
+
+@functools.lru_cache(maxsize=16)
+def _checked(key: Tuple, n_blocks: int) -> bool:
+    """What the JAX package's `_check_geometry` refuses, and a block that
+    would need more shared memory than the card has."""
+    cin, k, depths, dims, cq, factors = key
+    if k > SLOT + 1:
+        raise ValueError("encoder_front_step: kernel_size > 9 overflows the 8-row packed "
+                         "tail slots")
+    need = _sizes(key, n_blocks)["bytes"]
+    if need > MAX_SMEM:
+        raise ValueError(
+            f"encoder_front_step: this geometry (C_in {cin}, depths {depths}, dims {dims}, "
+            f"C_q {cq}, downsample {factors}) needs {need} bytes of shared memory a block "
+            f"on {n_blocks} SMs, more than the card's {MAX_SMEM}")
+    return True
 
 
 def _to_units(w: torch.Tensor, blocks: int = 1) -> torch.Tensor:
-    """w (blocks * K, N), `blocks` matrices stacked by rows -> (blocks, N /
-    UNIT, K, UNIT): each unit's column slice contiguous over the whole K."""
+    """w (blocks * K, N), `blocks` matrices stacked by rows -> (blocks,
+    ceil(N / UNIT), K, UNIT): each unit's column slice contiguous over the
+    whole K, the last one zero-padded."""
     K, N = w.shape[0] // blocks, w.shape[1]
-    return w.reshape(blocks, K, N // UNIT, UNIT).transpose(1, 2).contiguous()
+    w = F.pad(w, (0, -N % UNIT))
+    return w.reshape(blocks, K, -1, UNIT).transpose(1, 2).contiguous()
 
 
 def _matrices(pw: Dict) -> Iterator[Tuple[Tuple, torch.Tensor, int]]:
@@ -416,8 +475,8 @@ def unit_weights(pw: Dict) -> Dict:
     """The matrices of `packed_weights` unit-packed for the kernel, once per
     parameter tree (`params.Converter` keeps them beside the packed
     weights, `tokenizer_params["enc_units"]`): {"stem_w", "stages": [{"pw1",
-    "pw2"}], "mids": [w], "downs": [{"w", "pw1", "pw2"}]}, each (blocks, N /
-    4, K, 4)."""
+    "pw2"}], "mids": [w], "downs": [{"w", "pw1", "pw2"}]}, each (blocks,
+    ceil(N / 4), K, 4), in the weights' dtype."""
     out = {"stages": [{} for _ in pw["stages"]], "mids": [None] * len(pw["mids"]),
            "downs": [{} for _ in pw["downs"]]}
     for place, w, blocks in _matrices(pw):
@@ -434,20 +493,109 @@ def _unit_at(units: Dict, place: Tuple) -> torch.Tensor:
     return units
 
 
-def _weight_list(pw: Dict, u: Dict) -> List[torch.Tensor]:
-    """The kernel's weights in the order of csrc/convnext_enc.cu `w`: the
-    matrices from the unit-packed `u`, the rest from `pw`."""
-    w = [u["stem_w"], pw["stem_b"], pw["stem_ln_w"], pw["stem_ln_b"]]
-    block = lambda sp, su: [sp["dw_w"], sp["dw_b"], sp["ln_w"], sp["ln_b"], su["pw1"],
-                            sp["pw1_b"], su["pw2"], sp["pw2_b"], sp["gamma"]]
-    for sp, su in zip(pw["stages"], u["stages"]):
-        w += block(sp, su)
-    for m, mu in zip(pw["mids"], u["mids"]):
-        w += [m["ln_w"], m["ln_b"], mu, m["b"]]
-    w += [pw["final_ln_w"], pw["final_ln_b"]]
-    for dp, du in zip(pw["downs"], u["downs"]):
-        w += [du["w"], dp["b"], *block(dp["blk"], du)]
-    return w
+def _tensors(tree) -> Iterator[torch.Tensor]:
+    """Every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        tree = tree.values()
+    if isinstance(tree, (list, tuple)) or not torch.is_tensor(tree):
+        for t in tree:
+            yield from _tensors(t)
+    else:
+        yield tree
+
+
+def state_sizes(cfg: TokenizerConfig) -> List[int]:
+    """Elements of each leaf of a batch-1 `PackedEncState` (stem, stages,
+    down): the kernel reads and writes the state as one flat buffer in that
+    order."""
+    bb, q = cfg.backbone, cfg.quantizer
+    return ([SLOT * bb.input_channels] + [d * SLOT * c for d, c in zip(bb.depths, bb.dims)]
+            + [len(q.downsample_factor) * SLOT * q.input_dim])
+
+
+def _views(flat: torch.Tensor, cfg: TokenizerConfig, batch: int = 1) -> PackedEncState:
+    """A flat buffer of `batch` states as a PackedEncState of views (each
+    leaf contiguous, in the order of `state_sizes`)."""
+    bb, q = cfg.backbone, cfg.quantizer
+    widths = [bb.input_channels, *bb.dims, q.input_dim]
+    leaves, off = [], 0
+    for n, c in zip(state_sizes(cfg), widths):
+        leaves.append(flat[off : off + batch * n].view(batch, n // c, c))
+        off += batch * n
+    return PackedEncState(leaves[0], tuple(leaves[1:-1]), leaves[-1])
+
+
+def _flat(state: PackedEncState, cfg: TokenizerConfig) -> torch.Tensor:
+    """The state's leaves as one flat buffer: the buffer they are views of
+    where they are (every call's output state, `init_packed_state`), else a
+    copy."""
+    leaves = [state.stem, *state.stages, state.down]
+    base = leaves[0]
+    es = base.element_size()
+    off = 0
+    for t, n in zip(leaves, state_sizes(cfg)):
+        if (not t.is_contiguous() or t.dtype != base.dtype or t.device != base.device
+                or t.numel() != n or t.data_ptr() != base.data_ptr() + off * es):
+            return torch.cat([x.reshape(-1) for x in leaves]).to(base.dtype)
+        off += n
+    return base.as_strided((off,), (1,))
+
+
+def _table(pw: Dict, units: Dict, cfg: TokenizerConfig) -> List[int]:
+    """The kernel's table (csrc/convnext_enc.cu `tab`): the stem LN's
+    weight and bias, then per phase a record of PHASE_FIELDS ints
+    (`PhaseField`): its matrix (the block's slice of a stack), K, N, its
+    input rows' width, its kind, its tail slot's offset in the flat state,
+    its downsample factor, its flags, and the pointers of the vectors it
+    reads (0 where it has none)."""
+    key = _geo_key(cfg)
+    cin, k, depths, dims, cq, factors = key
+    ptr = lambda t: t.data_ptr()
+    tab = [ptr(pw["stem_ln_w"]), ptr(pw["stem_ln_b"])]
+    stage_off = np.cumsum([0] + state_sizes(cfg))
+    ph = _phases(key)
+    C = dims[0]
+    for p, phase in enumerate(ph):
+        flags = FL_STEM_LN if p == 1 else 0
+        mat, slot, f, vecs = 0, 0, 1, []
+        width = C
+        if phase.kind == "stem":
+            mat, width, vecs = ptr(units["stem_w"]), cin, [ptr(pw["stem_b"])]
+        elif phase.kind == "M":
+            i = int(phase.where[1:])
+            m = pw["mids"][i - 1]
+            mat, vecs = ptr(units["mids"][i - 1]), [ptr(m["ln_w"]), ptr(m["ln_b"]), ptr(m["b"])]
+            C = phase.N
+        elif phase.kind == "D":
+            i = int(phase.where[1:])
+            fin = [ptr(pw["final_ln_w"]), ptr(pw["final_ln_b"])] if i == 0 else [0, 0]
+            mat, f = ptr(units["downs"][i]["w"]), factors[i]
+            vecs = fin + [ptr(pw["downs"][i]["b"])]
+            flags |= FL_FINAL_LN if i == 0 else 0
+            C = phase.N
+        elif phase.kind == "L":
+            vecs = [ptr(pw["final_ln_w"]), ptr(pw["final_ln_b"])]
+            flags |= FL_FINAL_LN | FL_TO_Z
+        else:
+            if phase.where.startswith("s"):
+                i, bi = map(int, phase.where[1:].split("b"))
+                sp, u = pw["stages"][i], units["stages"][i]
+                slot = stage_off[1 + i] + bi * SLOT * C
+            else:
+                i, bi = int(phase.where[1:-1]), 0
+                sp, u = pw["downs"][i]["blk"], units["downs"][i]
+                slot = stage_off[-2] + i * SLOT * C
+            if phase.kind == "P":
+                mat = ptr(u["pw1"][bi])
+                vecs = [ptr(sp[n][bi]) for n in ("dw_w", "dw_b", "ln_w", "ln_b", "pw1_b")]
+            else:
+                mat = ptr(u["pw2"][bi])
+                vecs = [ptr(sp["pw2_b"][bi]), ptr(sp["gamma"][bi])]
+                if p == len(ph) - 1:
+                    flags |= FL_TO_Z
+        vecs += [0] * (5 - len(vecs))
+        tab += [mat, phase.K, phase.N, width, KINDS[phase.kind], int(slot), f, flags, *vecs]
+    return tab
 
 
 _KEPT: Dict[Tuple, Dict[str, torch.Tensor]] = {}
@@ -456,14 +604,15 @@ _KEPT: Dict[Tuple, Dict[str, torch.Tensor]] = {}
 def kept_scratch(cfg: TokenizerConfig, device) -> Dict[str, torch.Tensor]:
     """The scratch that the kernel's calls at this geometry on `device`
     share (so calls on two streams must not overlap): the activation
-    buffers `xa` and `xb` (ROWS x widest floats) and the hidden rows `g`
-    (ROWS x 4 widest).  Every call writes each before it reads it."""
+    buffers `xa` and `xb` (rows x widest floats, the rows of `_rows`) and
+    the hidden rows `g` (rows x 4 widest).  Every call writes each before
+    it reads it."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:  # tensors name their card
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (_geo_key(cfg), dev)
     if key not in _KEPT:
-        n = ROWS * widest(cfg)
+        n = _rows(key[0])[1] * widest(cfg)
         _KEPT[key] = {name: torch.empty(m * n, dtype=torch.float32, device=dev)
                       for name, m in (("xa", 1), ("xb", 1), ("g", 4))}
     return _KEPT[key]
@@ -480,33 +629,43 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-_WEIGHTS: Dict[int, Tuple[Dict, Dict, ctypes.Array]] = {}
-_WEIGHTS_MAX = 8
+_TABLES: Dict[Tuple, Tuple[Dict, Dict, torch.Tensor, np.ndarray]] = {}
+_TABLES_MAX = 8
 
 
-def _weight_pointers(pw: Dict, units: Dict, dev: torch.device) -> ctypes.Array:
-    """The kernel's weight pointers for `pw` and its `units`, checked at
-    their first call: kept while `units` is the same dict with the same
-    `pw` beside it (a tree is read as it was then; `params.Converter` makes
-    a new one for new weights)."""
-    hit = _WEIGHTS.get(id(units))
+def _device_table(pw: Dict, units: Dict, cfg: TokenizerConfig,
+                  dev: torch.device) -> Tuple[torch.Tensor, np.ndarray]:
+    """The kernel's table for `pw` and its `units` on `dev`, checked and
+    copied to the card at their first call, and a host int32 copy of each
+    record's fields K .. flags (the narrow build's launch parameters): kept
+    while `units` is the same dict with the same `pw` beside it (a tree is
+    read as it was then; `params.Converter` makes a new one for new
+    weights)."""
+    key = (id(units), _geo_key(cfg), dev)
+    hit = _TABLES.get(key)
     if hit is not None and hit[0] is pw and hit[1] is units:
-        return hit[2]
+        return hit[2], hit[3]
     for place, m, blocks in _matrices(pw):
         u = _unit_at(units, place)
         K, N = m.shape[0] // blocks, m.shape[1]
-        if tuple(u.shape) != (blocks, N // UNIT, K, UNIT):
-            raise ValueError(f"encoder_front_step: units{list(place)} has shape "
+        if tuple(u.shape) != (blocks, -(-N // UNIT), K, UNIT) or u.dtype != m.dtype:
+            raise ValueError(f"encoder_front_step: units{list(place)} is {u.dtype} "
                              f"{tuple(u.shape)}, not the unit_weights of pw")
-    w = _weight_list(pw, units)
-    if check_cuda("encoder_front_step", {f"w{i}": t for i, t in enumerate(w)},
-                  torch.float32) != dev:
+    w = list(_tensors(pw)) + list(_tensors(units))
+    wd = pw["stem_w"].dtype
+    if wd not in _TYPES:
+        raise ValueError(f"encoder_front_step: weights {wd}; the kernel takes float32 or "
+                         "bfloat16")
+    if check_cuda("encoder_front_step", {f"w{i}": t for i, t in enumerate(w)}, wd) != dev:
         raise ValueError(f"encoder_front_step: the weights are not on {dev}")
-    while len(_WEIGHTS) >= _WEIGHTS_MAX:
-        _WEIGHTS.pop(next(iter(_WEIGHTS)))
-    arr = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
-    _WEIGHTS[id(units)] = (pw, units, arr)
-    return arr
+    while len(_TABLES) >= _TABLES_MAX:
+        _TABLES.pop(next(iter(_TABLES)))
+    host = _table(pw, units, cfg)
+    ints = np.ascontiguousarray(
+        np.array(host[2:], dtype=np.int64).reshape(-1, PHASE_FIELDS)[:, 1:8], dtype=np.int32)
+    tab = torch.tensor(host, dtype=torch.int64).to(dev)
+    _TABLES[key] = (pw, units, tab, ints)
+    return tab, ints
 
 
 def encoder_front_step(pw: Dict, state: PackedEncState, mel: torch.Tensor,
@@ -524,19 +683,19 @@ def encoder_front_step(pw: Dict, state: PackedEncState, mel: torch.Tensor,
 def encoder_front_step_timeline(pw: Dict, state: PackedEncState, mel: torch.Tensor,
                                 cfg: TokenizerConfig, units: Dict) -> torch.Tensor:
     """One launch of the kernel (arguments as `encoder_front_step`, CUDA
-    tensors, at most 4 frames) that also records, per block, the card's
-    global time in ns where it enters each phase, where its product starts
-    (0 for a block that owns no columns of the phase) and where it leaves
-    the phase: (phases, blocks, 3) int64, the phases as `phases` lists
-    them."""
-    if mel.shape[1] > ROWS:
-        raise ValueError(f"encoder_front_step_timeline: at most {ROWS} frames")
+    tensors, at most `launch_frames` frames) that also records, per block,
+    the card's global time in ns where it enters each phase, where its
+    product starts (0 for a block that owns no columns of the phase) and
+    where it leaves the phase: (phases, blocks, 3) int64, the phases as
+    `phases` lists them."""
+    if mel.shape[1] > launch_frames(cfg):
+        raise ValueError(f"encoder_front_step_timeline: at most {launch_frames(cfg)} frames")
     return _launch(pw, state, mel, cfg, units, timeline=True)[2]
 
 
 def _launch(pw, state, mel, cfg, units, timeline):
     key = _geo_key(cfg)
-    cin, _, depths, _, cq, factors = key
+    cin, k, depths, _, cq, factors = key
     T0 = mel.shape[1]
     factor = math.prod(factors)
     if mel.ndim != 3 or mel.shape[0] != 1 or mel.shape[2] != cin or T0 % factor:
@@ -545,38 +704,40 @@ def _launch(pw, state, mel, cfg, units, timeline):
     if len(pw["stages"]) != len(depths) or len(pw["downs"]) != len(factors):
         raise ValueError("encoder_front_step: one packed stage per depth, one packed "
                          "downsample per factor")
-    _checked(key)
-    mel = mel.contiguous()
-    st_in = [state.stem, *state.stages, state.down]
-    named = {f"state{i}": t for i, t in enumerate(st_in)}
-    named["mel"] = mel
-    dev = check_cuda("encoder_front_step", named, torch.float32)
     if state.stem.shape[0] != 1:
         raise ValueError("encoder_front_step: batch 1")
+    sd = state.stem.dtype
+    if sd not in _TYPES:
+        raise ValueError(f"encoder_front_step: state {sd}; the kernel takes float32 or "
+                         "bfloat16")
+    flat = _flat(state, cfg)
+    dev = check_cuda("encoder_front_step", {"state": flat, "mel": mel.contiguous()})
     if units is None:
         raise ValueError("encoder_front_step: CUDA tensors need `units`, the unit_weights of "
                          "pw (params.Converter keeps them as tokenizer_params['enc_units'])")
-    w_c = _weight_pointers(pw, units, dev)
+    tab, ints = _device_table(pw, units, cfg, dev)
+    wd = pw["stem_w"].dtype
     n_blocks = _sm_count(dev)
+    _checked(key, n_blocks)
+    sz = _sizes(key, n_blocks)
     plan = _plan_on(key, n_blocks, dev)
     kept = kept_scratch(cfg, dev)
-    arr = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    mel = mel.to(wd).float().contiguous()  # the frames as the TPU kernel takes them
     stamps = (torch.zeros((len(_phases(key)), n_blocks, 3), dtype=torch.int64, device=dev)
               if timeline else None)
-    z = torch.empty((1, T0 // factor, cq), dtype=torch.float32, device=dev)
-    step = ROWS // factor * factor
+    z = torch.empty((1, T0 // factor, cq), dtype=wd, device=dev)
+    step = _rows(key)[0]
     for r0 in range(0, T0, step):
         T = min(step, T0 - r0)
-        st_out = [torch.empty_like(t) for t in st_in]
-        geo_c = _geometry(key, T)
-        in_c, out_c = arr(st_in), arr(st_out)
+        out = torch.empty_like(flat)
         rc = _build.load("convnext_enc")(
-            ctypes.addressof(geo_c), len(geo_c), ctypes.addressof(w_c), len(w_c),
-            ctypes.addressof(in_c), ctypes.addressof(out_c), mel[0, r0].data_ptr(),
-            z[0, r0 // factor].data_ptr(), kept["xa"].data_ptr(), kept["xb"].data_ptr(),
-            kept["g"].data_ptr(), plan.data_ptr(),
-            None if stamps is None else stamps.data_ptr(),
-            barrier_count("enc", dev).data_ptr(), n_blocks,
+            tab.data_ptr(), ints.ctypes.data, 2, len(_phases(key)), flat.data_ptr(),
+            out.data_ptr(), mel[0, r0].data_ptr(), z[0, r0 // factor].data_ptr(),
+            kept["xa"].data_ptr(), kept["xb"].data_ptr(), kept["g"].data_ptr(),
+            plan.data_ptr(), None if stamps is None else stamps.data_ptr(),
+            barrier_count("enc", dev).data_ptr(), T, k, sz["rows"], sz["max_k"], sz["pre_c"],
+            sz["ep_cols"], int(wd == torch.bfloat16), int(sd == torch.bfloat16), sz["wide"],
+            n_blocks,
             torch.cuda.current_stream(dev).cuda_stream)
         if rc == COOPERATIVE_TOO_LARGE:
             raise RuntimeError(f"encoder_front_step: a grid of {n_blocks} blocks, one per SM, "
@@ -584,9 +745,8 @@ def _launch(pw, state, mel, cfg, units, timeline):
         if rc != 0:
             raise RuntimeError(f"encoder_front_step: CUDA launch failed with error {rc}")
         encoder_front_step.launches += 1
-        st_in = st_out
-    new = PackedEncState(st_in[0], tuple(st_in[1 : 1 + len(depths)]), st_in[-1])
-    return new, z, stamps
+        flat = out
+    return _views(flat, cfg), z, stamps
 
 
 encoder_front_step.launches = 0

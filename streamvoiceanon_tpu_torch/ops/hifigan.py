@@ -49,7 +49,13 @@ launch and a drain each, and nothing uses the tensor cores.
 
 The plain version repeats the TPU kernel's arithmetic: each conv
 accumulates in float32, adds the bias in float32 and rounds once; SiLU and
-tanh run in float32; the branches are averaged in float32.
+tanh run in float32; the branches are averaged in float32.  Dtypes as the
+TPU kernel takes them: the weights W and the state tails S as given, mixed
+or not; the input rows rounded to W; the activations in promote(W, S),
+rounded there after each conv, residual sum, branch mean and SiLU; the
+tails stored as S; the waveform as W.  The kernel keeps its activation
+buffers in float32 and rounds their values to bf16 at those points when W
+and S are both bf16.
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ CONV_FIELDS = ("x", "x_n", "silu", "T", "cin", "k", "d", "n", "w", "w_off", "w2"
 # buffer ids in a record: the call's input, its waveform, then the scratch
 # buffers A, B, C_0.., D_0..
 BUF_X, BUF_WAV, BUF_FIRST = 0, 1, 2
+_TYPES = (torch.float32, torch.bfloat16)  # of the weights and of the state, each
 
 
 def _pad8(n: int) -> int:
@@ -260,11 +267,12 @@ def head_stream_step_plain(pw: Dict, state: PackedHeadState, x: torch.Tensor,
     slots = res_slots(cfg)
     k_pre, k_post = cfg.pre_conv_kernel_size, cfg.post_conv_kernel_size
     T = x.shape[1]
-    dtype = state.pre.dtype
+    wd, sd = pw["pre_w"].dtype, state.pre.dtype
+    dtype = torch.promote_types(wd, sd)  # the TPU kernel's concatenations promote
 
     pre_tail = state.pre[0]
-    full = torch.cat([pre_tail[: k_pre - 1], x[0].to(dtype)], dim=0)
-    pre_out = torch.cat([full[T : T + k_pre - 1], pre_tail[k_pre - 1 :]], dim=0)
+    full = torch.cat([pre_tail[: k_pre - 1].to(dtype), x[0].to(wd).to(dtype)], dim=0)
+    pre_out = torch.cat([full[T : T + k_pre - 1].to(sd), pre_tail[k_pre - 1 :]], dim=0)
     h = _conv(full, T, k_pre, 1, pw["pre_w"], pw["pre_b"])
 
     ups_out, res_out = [], []
@@ -272,8 +280,8 @@ def head_stream_step_plain(pw: Dict, state: PackedHeadState, x: torch.Tensor,
         st = pw["stages"][i]
         up_tail, res_tail = state.ups[i][0], state.res[i][0]
         co = st["wa"].shape[1] // s
-        full = torch.cat([up_tail[:1], _silu(h)], dim=0)  # (T + 1, C_in)
-        ups_out.append(torch.cat([full[T : T + 1], up_tail[1:]], dim=0))
+        full = torch.cat([up_tail[:1].to(dtype), _silu(h)], dim=0)  # (T + 1, C_in)
+        ups_out.append(torch.cat([full[T : T + 1].to(sd), up_tail[1:]], dim=0))
         y = full[:T].float() @ st["wa"].float() + full[1 : T + 1].float() @ st["wb"].float()
         T = T * s
         # row-major (T, s * C_out) is the de-interleaved (T * s, C_out)
@@ -287,7 +295,8 @@ def head_stream_step_plain(pw: Dict, state: PackedHeadState, x: torch.Tensor,
                 hc = xr
                 for _conv_i in range(2):
                     k, d, rows, off = slots[si]
-                    fullc = torch.cat([res_tail[off : off + rows], _silu(hc)], dim=0)
+                    fullc = torch.cat([res_tail[off : off + rows].to(dtype), _silu(hc)],
+                                      dim=0)
                     new_res[off : off + rows] = fullc[T : T + rows]
                     hc = _conv(fullc, T, k, d, st["rw"][woff : woff + k * co],
                                st["rb"][si : si + 1])
@@ -302,10 +311,10 @@ def head_stream_step_plain(pw: Dict, state: PackedHeadState, x: torch.Tensor,
         res_out.append(new_res)
 
     post_tail = state.post[0]
-    full = torch.cat([post_tail[: k_post - 1], _silu(h)], dim=0)
-    post_out = torch.cat([full[T : T + k_post - 1], post_tail[k_post - 1 :]], dim=0)
+    full = torch.cat([post_tail[: k_post - 1].to(dtype), _silu(h)], dim=0)
+    post_out = torch.cat([full[T : T + k_post - 1].to(sd), post_tail[k_post - 1 :]], dim=0)
     y = _conv(full, T, k_post, 1, pw["post_w"], pw["post_b"])
-    wav = torch.tanh(y.float()).to(dtype)[:, 0][None]
+    wav = torch.tanh(y.float()).to(wd)[:, 0][None]
     new = PackedHeadState(pre_out[None], tuple(u[None] for u in ups_out),
                           tuple(r[None] for r in res_out), post_out[None])
     return new, wav
@@ -480,11 +489,17 @@ def _launch(pw, state, x, cfg, timeline):
     for u, r in zip(state.ups, state.res):
         st_in += [u, r]
     st_in.append(state.post)
-    x = x.float().contiguous()
-    named = {f"w{i}": t for i, t in enumerate(w)}
-    named.update({f"state{i}": t for i, t in enumerate(st_in)})
-    named["x"] = x
-    dev = check_cuda("head_stream_step", named, torch.float32)
+    wd, sd = w[0].dtype, st_in[0].dtype
+    if wd not in _TYPES or sd not in _TYPES:
+        raise ValueError(f"head_stream_step: weights {wd} and state {sd}; the kernel takes "
+                         "float32 or bfloat16 for each")
+    x = x.to(wd).float().contiguous()  # the input rows as the TPU kernel takes them
+    dev = check_cuda("head_stream_step", {f"w{i}": t for i, t in enumerate(w)}, wd)
+    if check_cuda("head_stream_step", {**{f"state{i}": t for i, t in enumerate(st_in)},
+                                       "x": x}) != dev:
+        raise ValueError(f"head_stream_step: the state and x are not on {dev}")
+    if any(t.dtype != sd for t in st_in):
+        raise ValueError(f"head_stream_step: every state tail must be {sd}")
 
     T0 = x.shape[1]
     geo_c, n_geo, scratch, _ = _kept_plan(cfg, T0, dev)
@@ -500,13 +515,14 @@ def _launch(pw, state, x, cfg, timeline):
         ctypes.addressof(geo_c), ctypes.addressof(w_c), ctypes.addressof(in_c),
         ctypes.addressof(out_c), x.data_ptr(), wav.data_ptr(), n_geo,
         scratch.data_ptr(), None if stamps is None else stamps.data_ptr(),
+        int(wd == torch.bfloat16), int(sd == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"head_stream_step: CUDA launch failed with error {rc}")
     head_stream_step.launches += 1
     new = PackedHeadState(st_out[0], tuple(st_out[1 : 1 + 2 * n_stage : 2]),
                           tuple(st_out[2 : 2 + 2 * n_stage : 2]), st_out[-1])
-    return new, wav, stamps
+    return new, wav.to(wd), stamps
 
 
 head_stream_step.launches = 0

@@ -1,23 +1,27 @@
-"""The streaming path's quantizer ops, as `streamvoiceanon_tpu.ops.quantizers`.
+"""Quantizer ops, as `streamvoiceanon_tpu.ops.quantizers`.
 
 * LFQ / BSQ encode — content tokens are the sign pattern of a 13-d
   projection, most significant bit first.
-* FSQ decode — grouped residual finite scalar quantizer of the vocoder
-  (8 groups x levels (8, 5, 5, 5) = 8 codebooks of 1000).
+* FSQ encode and decode — the grouped residual finite scalar quantizer of
+  the vocoder (8 groups x levels (8, 5, 5, 5) = 8 codebooks of 1000) and
+  the speaker encoder's residual FSQ (levels 4^6).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 
 def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    """x @ w + b in the promoted dtype of x and the weights, as JAX's
+    matmul promotes (float32 activations against bf16 weights)."""
+    dt = torch.promote_types(x.dtype, p["w"].dtype)
+    y = x.to(dt) @ p["w"].to(dt)
     if p.get("b") is not None:
-        y = y + p["b"]
+        y = y + p["b"].to(dt)
     return y
 
 
@@ -37,6 +41,29 @@ def _fsq_consts(levels: Sequence[int]):
     return lv, basis, lv // 2
 
 
+def fsq_bound(z: torch.Tensor, levels: Sequence[int], eps: float = 1e-3) -> torch.Tensor:
+    lv = torch.tensor(levels, dtype=torch.float32, device=z.device)
+    half_l = (lv - 1.0) * (1.0 + eps) / 2.0
+    offset = torch.tensor([0.5 if l % 2 == 0 else 0.0 for l in levels],
+                          dtype=torch.float32, device=z.device)
+    shift = torch.atanh(offset / half_l)
+    return torch.tanh(z + shift) * half_l - offset
+
+
+def fsq_quantize(z: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
+    """Round to the grid (half to even), renormalised to [-1, 1]."""
+    half_width = torch.from_numpy(_fsq_consts(levels)[2].astype(np.float32)).to(z.device)
+    return torch.round(fsq_bound(z.float(), levels)) / half_width
+
+
+def fsq_codes_to_indices(codes: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
+    _, basis, half_width = _fsq_consts(levels)
+    hw = torch.from_numpy(half_width.astype(np.float32)).to(codes.device)
+    zint = codes * hw + hw
+    return torch.sum(zint * torch.from_numpy(basis.astype(np.float32)).to(codes.device),
+                     dim=-1).to(torch.int32)
+
+
 def fsq_indices_to_codes(indices: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
     lv, basis, half_width = _fsq_consts(levels)
     dev = indices.device
@@ -53,6 +80,29 @@ def _rfsq_scales(levels: Sequence[int], num_quantizers: int) -> np.ndarray:
     return np.stack(
         [(lv - 1.0) ** (-float(i)) for i in range(num_quantizers)]
     ).astype(np.float32)
+
+
+def residual_fsq_encode(params: Dict, x: torch.Tensor, levels: Sequence[int],
+                        num_quantizers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, dim) -> (quantized (B, T, dim), indices (B, T, Q)): each
+    layer quantizes residual / scale_i on the FSQ grid, scales back and
+    subtracts."""
+    h = _linear(params["project_in"], x) if "project_in" in params else x
+    h = h.float()
+    scales = _rfsq_scales(levels, num_quantizers)
+    residual = h
+    out = torch.zeros_like(h)
+    idx = []
+    for i in range(num_quantizers):
+        s = torch.from_numpy(scales[i]).to(h.device)
+        codes = fsq_quantize(residual / s, levels)
+        idx.append(fsq_codes_to_indices(codes, levels))
+        q = codes * s
+        residual = residual - q
+        out = out + q
+    if "project_out" in params:
+        out = _linear(params["project_out"], out)
+    return out, torch.stack(idx, dim=-1)
 
 
 def residual_fsq_decode(params: Dict, indices: torch.Tensor, levels: Sequence[int],
@@ -75,3 +125,13 @@ def grouped_residual_fsq_decode(params: Dict, indices: torch.Tensor, groups: int
         residual_fsq_decode(params[f"group_{g}"], per[g], levels, num_quantizers)
         for g in range(groups)
     ], dim=-1)
+
+
+def grouped_residual_fsq_encode(params: Dict, x: torch.Tensor, groups: int,
+                                levels: Sequence[int], num_quantizers: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, dim) -> (quantized (B, T, dim), indices (B, T, groups * Q))."""
+    outs, idxs = zip(*(residual_fsq_encode(params[f"group_{g}"], chunk, levels,
+                                           num_quantizers)
+                       for g, chunk in enumerate(torch.chunk(x, groups, dim=-1))))
+    return torch.cat(outs, dim=-1), torch.cat(idxs, dim=-1)

@@ -96,3 +96,48 @@ def log_mel_frames(x: torch.Tensor, cfg: MelConfig, dft: torch.Tensor,
     re, im = spec[..., :n_bins], spec[..., n_bins:]
     mag = torch.sqrt(re * re + im * im + 1e-6)
     return torch.log(torch.clamp(mag @ fb, min=1e-5))
+
+
+def linear_spectrogram(wav: torch.Tensor, cfg: MelConfig, *, causal_pad: bool = True,
+                       center: bool = False, pow2_sqrt_eps: bool = None) -> torch.Tensor:
+    """Magnitude spectrogram (B, frames, n_bins) of a whole utterance.
+
+    `causal_pad` left-pads `win - hop` zeros (frames = T // hop for T a
+    multiple of hop); `center` instead reflect-pads n_fft // 2 on both
+    sides (torch.stft center=True, the speaker encoder's front end).  The
+    1e-6 under the square root follows `causal_pad` unless given."""
+    if wav.ndim == 1:
+        wav = wav[None]
+    if wav.ndim != 2:
+        raise ValueError(f"expected mono audio of shape (T,) or (B, T), got "
+                         f"{tuple(wav.shape)}; mix multi-channel audio down to mono first")
+    if causal_pad and center:
+        raise ValueError("causal_pad and center are mutually exclusive")
+    x = wav.float()
+    if causal_pad:
+        x = torch.nn.functional.pad(x, (cfg.win_length - cfg.hop_length, 0))
+    elif center:
+        x = torch.nn.functional.pad(x[:, None], (cfg.n_fft // 2, cfg.n_fft // 2),
+                                    mode="reflect")[:, 0]
+    dft = torch.from_numpy(dft_matrix(cfg.n_fft, cfg.win_length)).to(x.device)
+    spec = x.unfold(1, cfg.n_fft, cfg.hop_length) @ dft
+    n_bins = cfg.n_fft // 2 + 1
+    re, im = spec[..., :n_bins], spec[..., n_bins:]
+    if pow2_sqrt_eps is None:
+        pow2_sqrt_eps = causal_pad
+    return torch.sqrt(re * re + im * im + (1e-6 if pow2_sqrt_eps else 0.0))
+
+
+def mel_spectrogram_center(wav: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """torchaudio MelSpectrogram(power=1, slaney, center=True): the speaker
+    encoder's front end, (B, frames, n_mels)."""
+    spec = linear_spectrogram(wav, cfg, causal_pad=False, center=True)
+    return spec @ torch.from_numpy(mel_matrix(cfg)).to(spec.device)
+
+
+def log_mel_spectrogram(wav: torch.Tensor, cfg: MelConfig, *, causal_pad: bool = True,
+                        pow2_sqrt_eps: bool = True) -> torch.Tensor:
+    """Causal log-mel features of a whole utterance, (B, frames, n_mels)."""
+    spec = linear_spectrogram(wav, cfg, causal_pad=causal_pad, pow2_sqrt_eps=pow2_sqrt_eps)
+    mel = spec @ torch.from_numpy(mel_matrix(cfg)).to(spec.device)
+    return torch.log(torch.clamp(mel, min=1e-5))

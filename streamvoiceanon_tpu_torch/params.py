@@ -11,9 +11,8 @@ layers).  Conv weights change from the channels-last layouts of
   ConvTranspose1d  (k, in, out)        -> (in, out, k)
   Linear           (in, out)           kept: the port computes x @ w
 
-Only the parts of the tokenizer and vocoder trees the streaming path uses
-are carried (the pre-quantization transformer, not the post one; the
-decode side of the codec, not its encoder).  Layer lists are stacked once
+Only the parts of the tokenizer tree that encoding uses are carried (the
+pre-quantization transformer, not the post one).  Layer lists are stacked once
 here into one tree of (L, ...) arrays (the dual-AR layers and the windowed
 transformer's).  A `Converter` packs, once, the weights of the fused
 kernels its program set runs: with `HiFiGANConfig.use_pallas_stream` the
@@ -25,6 +24,7 @@ for the front kernel, `tokenizer_params["enc_units"]`).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -107,8 +107,8 @@ def windowed_transformer_params(p: Dict, device, dtype=torch.float32) -> Dict:
     return tree(q, device, dtype)
 
 
-def tokenizer_params(p: Dict, device, dtype=torch.float32) -> Dict:
-    bb = p["backbone"]
+def _backbone(bb: Dict, device, dtype) -> Dict:
+    """A ConvNeXt encoder (stem conv, 1x1 transitions as x @ w, blocks)."""
     backbone = {}
     for k, v in bb.items():
         if k == "stem_conv":
@@ -120,11 +120,18 @@ def tokenizer_params(p: Dict, device, dtype=torch.float32) -> Dict:
             backbone[k] = [_block(b, device, dtype) for b in v]
         else:
             backbone[k] = tree(v, device, dtype)
+    return backbone
+
+
+def _downsample(stages, device, dtype):
+    return [{"conv": _conv(s["conv"], device, dtype), "block": _block(s["block"], device, dtype)}
+            for s in stages]
+
+
+def tokenizer_params(p: Dict, device, dtype=torch.float32) -> Dict:
     return {
-        "backbone": backbone,
-        "downsample": [{"conv": _conv(s["conv"], device, dtype),
-                        "block": _block(s["block"], device, dtype)}
-                       for s in p["downsample"]],
+        "backbone": _backbone(p["backbone"], device, dtype),
+        "downsample": _downsample(p["downsample"], device, dtype),
         "pre_module": windowed_transformer_params(p["pre_module"], device, dtype),
         "lfq": tree(p["lfq"], device, dtype),
     }
@@ -145,8 +152,11 @@ def hifigan_params(h: Dict, device, dtype=torch.float32) -> Dict:
 
 
 def vocoder_params(p: Dict, device, dtype=torch.float32) -> Dict:
-    """The decode side of the codec."""
+    """The codec: its encode side (ConvNeXt encoder, downsample stages) and
+    its decode side (upsample stages, FSQ, HiFiGAN head)."""
     return {
+        "backbone": _backbone(p["backbone"], device, dtype),
+        "downsample": _downsample(p["downsample"], device, dtype),
         "upsample": [{"conv": _tconv(s["conv"], device, dtype),
                       "block": _block(s["block"], device, dtype)}
                      for s in p["upsample"]],
@@ -174,15 +184,63 @@ def arvc_params(p: Dict, device, dtype=torch.float32) -> Dict:
     return out
 
 
+def _conv2d_weight(w) -> np.ndarray:
+    """Conv2d (kh, kw, in, out) -> (out, in, kh, kw)."""
+    return np.transpose(_np(w), (3, 2, 0, 1))
+
+
+def _convs(x, device, dtype):
+    """A tree whose 3-D leaves are Conv1d weights (k, in, out) and 4-D leaves
+    Conv2d weights (kh, kw, in, out), carried over in PyTorch's layouts;
+    every other leaf (BatchNorm vectors, linear (in, out)) as it is."""
+    if isinstance(x, dict):
+        return {k: _convs(v, device, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_convs(v, device, dtype) for v in x]
+    a = _np(x)
+    if a.ndim == 3:
+        a = conv_weight(a)
+    elif a.ndim == 4:
+        a = _conv2d_weight(a)
+    return _t(a, device, dtype)
+
+
+def campplus_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """CAM++ (models/campplus.py): its 2-D and 1-D convs in PyTorch's
+    layouts, the CAM masks' linear weights (in, out)."""
+    return _convs(p, device, dtype)
+
+
+def speaker_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The speaker encoder's timbre path (models/speaker_encoder.py): ECAPA's
+    convs in PyTorch's layout, the perceiver's and FSQ's linear weights (in,
+    out).  The x-vector head, which the timbre path does not use, is left
+    out."""
+    return _convs({k: p[k] for k in ("ecapa", "perceiver", "fsq")}, device, dtype)
+
+
+def cast_tree(x, dtype):
+    """Every floating tensor of a nested dict/list tree in `dtype`."""
+    if isinstance(x, dict):
+        return {k: cast_tree(v, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [cast_tree(v, dtype) for v in x]
+    return x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x
+
+
 @dataclass
 class Converter:
-    """The three parameter trees of a voice converter, on one device."""
+    """The parameter trees of a voice converter, on one device: tokenizer,
+    vocoder and ARVC, and for the prompt side from audio the CAM++ and
+    speaker-encoder trees."""
 
     cfg: PipelineConfig
     tokenizer_params: Dict
     vocoder_params: Dict
     arvc_params: Dict
     device: torch.device
+    campplus_params: Optional[Dict] = None  # the speaker branch (runtime/pipeline.py)
+    speaker_params: Optional[Dict] = None
 
     def __post_init__(self):
         """Pack the weights of the fused kernels `cfg` runs where the trees
@@ -199,18 +257,36 @@ class Converter:
                                    "head_packed": headops.packed_weights(
                                        self.vocoder_params["head"], hcfg)}
 
+    @functools.cached_property
+    def float32_trees(self) -> Dict[str, Dict]:
+        """The tokenizer and vocoder trees in float32, without the fused
+        kernels' packed weights, by field name: the offline encoders and
+        decode run on them (runtime/pipeline.py).  Float32 trees share their
+        tensors; bf16 ones are cast once a converter."""
+        packed = ("enc_packed", "enc_units", "head_packed")
+        return {n: cast_tree({k: v for k, v in getattr(self, n).items() if k not in packed},
+                             torch.float32)
+                for n in ("tokenizer_params", "vocoder_params")}
+
 
 def converter_from_numpy(cfg: PipelineConfig, tokenizer_np: Dict, vocoder_np: Dict,
                          arvc_np: Dict, *, device: Optional[str] = None,
-                         lm_dtype=torch.float32) -> Converter:
+                         lm_dtype=torch.float32, dsp_dtype=torch.float32,
+                         campplus_np: Optional[Dict] = None,
+                         speaker_np: Optional[Dict] = None) -> Converter:
     """Carry the JAX-layout numpy trees over to `device` (the CUDA card
-    unless given).  `lm_dtype` applies to the whole ARVC tree (bf16 is the
-    serving point); the tokenizer and vocoder stay in float32."""
+    unless given).  `lm_dtype` applies to the whole ARVC tree and
+    `dsp_dtype` to the tokenizer and vocoder trees (bf16 for both is the
+    JAX package's serving point, bench.py `_dsp_dtype`); the packed weights
+    of the fused kernels follow `dsp_dtype`.  The CAM++ and speaker-encoder
+    trees, where given, stay in float32."""
     dev = resolve_device(device)
     return Converter(
         cfg=cfg,
-        tokenizer_params=tokenizer_params(tokenizer_np, dev),
-        vocoder_params=vocoder_params(vocoder_np, dev),
+        tokenizer_params=tokenizer_params(tokenizer_np, dev, dsp_dtype),
+        vocoder_params=vocoder_params(vocoder_np, dev, dsp_dtype),
         arvc_params=arvc_params(arvc_np, dev, lm_dtype),
         device=dev,
+        campplus_params=None if campplus_np is None else campplus_params(campplus_np, dev),
+        speaker_params=None if speaker_np is None else speaker_params(speaker_np, dev),
     )

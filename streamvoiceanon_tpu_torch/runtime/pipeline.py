@@ -1,0 +1,153 @@
+"""Offline voice conversion and the prompt side, as the JAX package's
+runtime/pipeline.py: content tokens and codec codes of 44.1 kHz audio, the
+(noise-mixed) speaker embeddings from its 16 kHz resampling (CAM++ style
+vector over Kaldi fbank, the speaker encoder's timbre latents), the dual-AR
+LM's `generate` and the vocoder's offline decode.
+
+`VoiceConverter` holds a `params.Converter` and gives it these entry
+points.  The tokenizer and vocoder encode and decode whole utterances in
+float32, on the converter's `float32_trees` (the JAX package's matmuls
+promote bf16 weights against float32 activations).
+Random draws (the anonymisation noise, the LM's Gumbel noise) are inputs,
+or come from a `torch.Generator` on the converter's device."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from streamvoiceanon_tpu_torch.audio import fbank as fbank_mod
+from streamvoiceanon_tpu_torch.audio.resample import resample
+from streamvoiceanon_tpu_torch.config import SamplingConfig
+from streamvoiceanon_tpu_torch.models import (arvc, campplus, speaker_encoder, tokenizer,
+                                              vocoder)
+from streamvoiceanon_tpu_torch.params import Converter
+
+
+def apply_noise_mixing(x: torch.Tensor, alpha: float,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """alpha * x + (1 - alpha) * N(mean(x), std(x)), the standard normal
+    draw `noise` (x's shape) or drawn from `generator`."""
+    if alpha >= 1.0:
+        return x
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=x.device)
+    noise = noise.to(x) * torch.std(x, unbiased=False) + torch.mean(x)
+    return alpha * x + (1.0 - alpha) * noise
+
+
+class VoiceConverter:
+    """The offline and prompt-side entry points on a converter's trees."""
+
+    def __init__(self, converter: Converter):
+        self.converter = converter
+        self.cfg = converter.cfg
+        self.device = converter.device
+
+    def _tensor(self, wav) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(wav, np.float32) if not torch.is_tensor(wav) else wav)
+        return t.to(self.device, torch.float32)
+
+    # ------------------------------------------------------------------
+    # features
+    # ------------------------------------------------------------------
+
+    def content_tokens(self, wav) -> torch.Tensor:
+        """wav (B, T) at 44.1 kHz -> content tokens (B, T // 2048) int32."""
+        wav = self._tensor(wav)
+        spf = self.cfg.samples_per_frame
+        return tokenizer.encode(self.converter.float32_trees["tokenizer_params"],
+                                self.cfg.tokenizer, wav[..., : wav.shape[-1] // spf * spf])
+
+    def audio_codes(self, wav) -> torch.Tensor:
+        """wav (B, T) at 44.1 kHz -> codec codes (B, 8, T // 2048) int32."""
+        wav = self._tensor(wav)
+        spf = self.cfg.samples_per_frame
+        return vocoder.encode(self.converter.float32_trees["vocoder_params"], self.cfg.vocoder,
+                              wav[..., : wav.shape[-1] // spf * spf])[0]
+
+    def style_vector(self, wav16k) -> torch.Tensor:
+        """The CAM++ style vector (B, 192) of 16 kHz audio."""
+        feat = fbank_mod.fbank(self._tensor(wav16k))
+        feat = feat - feat.mean(dim=1, keepdim=True)
+        lens = torch.full((feat.shape[0],), feat.shape[1] // 2, device=feat.device)
+        return campplus.apply(self.converter.campplus_params, self.cfg.campplus, feat, lens)
+
+    def timbre_latents(self, wav16k) -> torch.Tensor:
+        """The speaker encoder's timbre latents (B, 32, 128) of 16 kHz audio."""
+        wav16k = self._tensor(wav16k)
+        lens = torch.full((wav16k.shape[0],), wav16k.shape[-1], device=wav16k.device)
+        return speaker_encoder.tokenize_wav(self.converter.speaker_params, self.cfg.speaker, wav16k,
+                                            lens)[0]
+
+    def speaker_embeddings(self, ref_wavs: Sequence, alpha: float,
+                           generator: Optional[torch.Generator] = None,
+                           collate: str = "concat_mel",
+                           noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(style, timbre) of one or more references, fused by concatenating
+        the audio ("concat_mel") or by averaging per-reference embeddings
+        ("avg"), then noise-mixed with `alpha` (`noise`: the two standard
+        normal draws, else drawn from `generator`)."""
+        sr, rr = self.cfg.sample_rate, self.cfg.resample_rate
+        if collate == "avg" and len(ref_wavs) > 1:
+            styles, timbres = [], []
+            for w in ref_wavs:
+                w16 = resample(self._tensor(w)[None], sr, rr)
+                styles.append(self.style_vector(w16))
+                timbres.append(self.timbre_latents(w16))
+            style = torch.stack(styles).mean(dim=0)
+            timbre = torch.stack(timbres).mean(dim=0)
+        else:
+            w16 = resample(torch.cat([self._tensor(w) for w in ref_wavs])[None], sr, rr)
+            style = self.style_vector(w16)
+            timbre = self.timbre_latents(w16)
+        ns, nt = noise if noise is not None else (None, None)
+        return (apply_noise_mixing(style, alpha, generator, ns),
+                apply_noise_mixing(timbre, alpha, generator, nt))
+
+    # ------------------------------------------------------------------
+    # conversion
+    # ------------------------------------------------------------------
+
+    def infer(self, src_wav, ref_wavs: Union[np.ndarray, Sequence[np.ndarray]], *,
+              delay: int = 2, alpha: float = 1.0,
+              generator: Optional[torch.Generator] = None,
+              sampling: Optional[SamplingConfig] = None, collate: str = "concat_mel",
+              ref_crop_lengths=None, spk_noise=None, lm_noise=None) -> np.ndarray:
+        """Offline conversion of `src_wav` to the voice of `ref_wavs` (44.1
+        kHz): the reference prompt cropped to a multiple of 8 frames, the
+        source tokens padded to a multiple of 16, then `arvc.generate` and
+        the vocoder.  Returns the waveform at 44.1 kHz (numpy).  `spk_noise`
+        and `lm_noise` are the random draws of `speaker_embeddings` and
+        `arvc.generate`, else drawn from `generator`."""
+        if isinstance(ref_wavs, np.ndarray) or torch.is_tensor(ref_wavs):
+            ref_wavs = [ref_wavs]
+        if ref_crop_lengths is not None:
+            crops = ([ref_crop_lengths] * len(ref_wavs) if np.isscalar(ref_crop_lengths)
+                     else ref_crop_lengths)
+            ref_wavs = [w[: int(c * self.cfg.sample_rate)] if c is not None else w
+                        for w, c in zip(ref_wavs, crops)]
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        sampling = sampling or self.cfg.sampling
+        style, timbre = self.speaker_embeddings(ref_wavs, alpha, generator, collate, spk_noise)
+        ref_cat = torch.cat([self._tensor(w) for w in ref_wavs])[None]
+        ref_codes = self.audio_codes(ref_cat)
+        ref_tokens = self.content_tokens(ref_cat)
+        src_tokens = self.content_tokens(self._tensor(src_wav)[None])
+        Tr = max(ref_tokens.shape[1] // 8 * 8, min(8, ref_tokens.shape[1]))
+        ref_tokens, ref_codes = ref_tokens[:, :Tr], ref_codes[:, :, :Tr]
+        Ts = src_tokens.shape[1]
+        src_tokens = torch.nn.functional.pad(src_tokens, (0, -(-Ts // 16) * 16 - Ts))
+        ap = self.converter.arvc_params
+        codes = arvc.generate(ap, self.cfg.arvc, ref_tokens, ref_codes,
+                              src_tokens, style.to(ap["embedding"].dtype),
+                              timbre.to(ap["embedding"].dtype), sampling, delay,
+                              generator=generator, noise=lm_noise)
+        wav = vocoder.decode(self.converter.float32_trees["vocoder_params"], self.cfg.vocoder,
+                             codes)
+        return wav[0, : Ts * self.cfg.samples_per_frame].float().cpu().numpy()

@@ -18,9 +18,12 @@ of 2048 samples (one frame) runs three stages:
    that state one chunk at a time over the window before the boundary, so
    the boundary chunk only swaps it in.
 
-The position trajectory is deterministic, so refills are scheduled from
-host counters with no device read-back.  Sampling noise is drawn on the
-device from the session's `torch.Generator`.
+The prompt comes from reference audio (`runtime/pipeline.py`: speaker
+embeddings, codes and content tokens) or precomputed.  The position
+trajectory is deterministic, so refills are scheduled from host counters
+with no device read-back.  Sampling noise (and the anonymisation noise of
+the speaker embeddings) is drawn on the device from the session's
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from streamvoiceanon_tpu_torch.config import SamplingConfig, StreamConfig
 from streamvoiceanon_tpu_torch.models import arvc, dual_ar, tokenizer_stream, vocoder
 from streamvoiceanon_tpu_torch.params import Converter
+from streamvoiceanon_tpu_torch.runtime.pipeline import VoiceConverter
 
 
 class FusedState(NamedTuple):
@@ -54,8 +58,9 @@ class StreamSession:
     """One real-time conversion stream at batch 1.
 
     Usage:
-        sess = StreamSession(converter, stream_cfg, style=..., timbre=...,
-                             ref_tokens=..., ref_codes=...)
+        sess = StreamSession(converter, stream_cfg, ref_wavs)
+        # or StreamSession(converter, stream_cfg, style=..., timbre=...,
+        #                  ref_tokens=..., ref_codes=...)
         for chunk in chunks_of_2048_samples:
             out = sess.process_chunk(chunk)   # (2048 * k,) samples
     """
@@ -64,17 +69,26 @@ class StreamSession:
         self,
         converter: Converter,
         scfg: Optional[StreamConfig] = None,
+        ref_wavs=None,
         *,
-        style,
-        timbre,
-        ref_tokens,
-        ref_codes,
+        style=None,
+        timbre=None,
+        ref_tokens=None,
+        ref_codes=None,
         sampling: Optional[SamplingConfig] = None,
         seed: int = 0,
-        cache_dtype=torch.float32,
+        state_dtype=torch.float32,
+        spk_noise=None,
     ):
-        """`cache_dtype` is the LM KV cache's (bf16 is the serving point);
-        the tokenizer and vocoder stream states are float32."""
+        """The prompt comes from `ref_wavs` (one 44.1 kHz reference or a
+        list): its speaker embeddings, noise-mixed with `scfg.alpha`
+        (`spk_noise`: the two standard normal draws, else drawn from the
+        session's generator), and the codes and content tokens of the
+        concatenated references; or precomputed, as `style`, `timbre`,
+        `ref_tokens` and `ref_codes`.  `state_dtype` is that of the LM KV
+        cache and of the tokenizer's and vocoder's stream tails (the
+        ConvNeXt front's, the ring's, the head's), as in the JAX package;
+        bf16 is its serving point."""
         self.cv = converter
         self.cfg = converter.cfg
         self.scfg = scfg or self.cfg.stream
@@ -82,16 +96,28 @@ class StreamSession:
         self.device = converter.device
         self.spf = self.cfg.samples_per_frame
         self.delay = self.scfg.delay
-        self.cache_dtype = cache_dtype
+        self.state_dtype = state_dtype
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         lm_dtype = converter.arvc_params["embedding"].dtype
         dev = self.device
+        if ref_wavs is not None:
+            vc = VoiceConverter(converter)
+            wavs = list(ref_wavs) if isinstance(ref_wavs, (list, tuple)) else [ref_wavs]
+            style, timbre = vc.speaker_embeddings(wavs, self.scfg.alpha, self.generator,
+                                                  noise=spk_noise)
+            cat = torch.cat([vc._tensor(w) for w in wavs])[None]
+            ref_codes = vc.audio_codes(cat)
+            ref_tokens = vc.content_tokens(cat)
+        if any(x is None for x in (style, timbre, ref_tokens, ref_codes)):
+            raise ValueError("StreamSession: give ref_wavs, or style, timbre, ref_tokens "
+                             "and ref_codes")
+        on = lambda x: (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(dev)
         mp = self.scfg.max_prompt_frames
-        self.ref_tokens = torch.tensor(np.asarray(ref_tokens), device=dev)[:, :mp]
-        self.ref_codes = torch.tensor(np.asarray(ref_codes), device=dev)[:, :, :mp]
-        self.style = torch.tensor(np.asarray(style, np.float32), device=dev).to(lm_dtype)
-        self.timbre = torch.tensor(np.asarray(timbre, np.float32), device=dev).to(lm_dtype)
+        self.ref_tokens = on(ref_tokens)[:, :mp]
+        self.ref_codes = on(ref_codes)[:, :, :mp]
+        self.style = on(style).float().to(lm_dtype)
+        self.timbre = on(timbre).float().to(lm_dtype)
         if self.ref_tokens.shape[0] != 1:
             raise NotImplementedError("StreamSession supports batch 1")
         self.Tp = self.ref_tokens.shape[1]
@@ -115,10 +141,10 @@ class StreamSession:
         nq = self.cfg.arvc.decoder.num_codebooks
         self.fstate = FusedState(
             tok=tokenizer_stream.init_stream_state(
-                converter.tokenizer_params, self.cfg.tokenizer, 1, device=dev),
+                converter.tokenizer_params, self.cfg.tokenizer, 1, state_dtype, dev),
             lm=_own_caches(lm_state),
             voc=vocoder.init_stream_state(
-                converter.vocoder_params, self.cfg.vocoder, 1, device=dev),
+                converter.vocoder_params, self.cfg.vocoder, 1, state_dtype, dev),
             tok_ring=torch.zeros((1, self.tok_ring_len), dtype=torch.int32, device=dev),
             code_ring=torch.zeros((1, nq, self.tok_ring_len), dtype=torch.int32,
                                   device=dev),
@@ -131,7 +157,7 @@ class StreamSession:
     def _prefill_prompt(self, tokens, codes) -> arvc.ARVCState:
         return arvc.prefill_prompt(self.cv.arvc_params, self.cfg.arvc, tokens, codes,
                                    self.style, self.timbre, self.delay,
-                                   self.cache_dtype)
+                                   self.state_dtype)
 
     def _prefill_delay(self, lm: arvc.ARVCState) -> arvc.ARVCState:
         return arvc.prefill_src_condition4delay(
@@ -153,11 +179,8 @@ class StreamSession:
         sem, fast = dual_ar.frame_noise_shapes(self.cv.arvc_params["model"],
                                                self.cfg.arvc.decoder, self.sampling, 1)
 
-        def gumbel(shape):
-            u = torch.rand(shape, generator=self.generator, device=self.device)
-            return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
-
-        return gumbel(sem), gumbel(fast)
+        return (arvc.gumbel(sem, self.generator, self.device),
+                arvc.gumbel(fast, self.generator, self.device))
 
     @property
     def truncation_count(self) -> int:
@@ -175,7 +198,7 @@ class StreamSession:
     def process_chunk(self, chunk) -> np.ndarray:
         """One chunk of decode_chunk_frames * 2048 samples in, as many out
         (zeros while the delay fills)."""
-        return self._process_chunk_incremental(chunk).cpu().numpy()[0]
+        return self._process_chunk_incremental(chunk).float().cpu().numpy()[0]
 
     def _process_chunk_incremental(self, chunk) -> torch.Tensor:
         k = self.scfg.decode_chunk_frames

@@ -25,6 +25,13 @@ class _R:
             self.dtype
         )
 
+    def he(self, *shape):
+        """Fan-in-scaled init (std = sqrt(2/fan_in), last axis = out
+        channels): variance-preserving through deep conv stacks, where a
+        fixed std would decay activations exponentially."""
+        fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else shape[0]
+        return self.n(*shape, std=float(np.sqrt(2.0 / fan_in)))
+
     def ones(self, *shape):
         return np.ones(shape, self.dtype)
 
@@ -209,3 +216,113 @@ def vocoder_params_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
     p["head"]["conv_post"] = {"w": r.n(h.post_conv_kernel_size, last, 1),
                               "b": r.zeros(1)}
     return p
+
+
+def campplus_params_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
+    """Random CAMPPlus params (same tree as models/campplus.convert output)."""
+    r = _R(seed, dtype)
+
+    def bn(c):
+        return {"mean": r.zeros(c), "var": r.ones(c), "w": r.ones(c), "b": r.zeros(c)}
+
+    def bn_noaff(c):
+        return {"mean": r.zeros(c), "var": r.ones(c)}
+
+    def res_block(cin, cout, stride):
+        p = {
+            "conv1": r.he(3, 3, cin, cout), "bn1": bn(cout),
+            "conv2": r.he(3, 3, cout, cout), "bn2": bn(cout),
+        }
+        if stride != 1 or cin != cout:
+            p["shortcut_conv"] = r.he(1, 1, cin, cout)
+            p["shortcut_bn"] = bn(cout)
+        return p
+
+    m = 32
+    fcm = {
+        "conv1": r.he(3, 3, 1, m), "bn1": bn(m),
+        "conv2": r.he(3, 3, m, m), "bn2": bn(m),
+        "layer1": [res_block(m, m, 2), res_block(m, m, 1)],
+        "layer2": [res_block(m, m, 2), res_block(m, m, 1)],
+    }
+    ch = m * (cfg.feat_dim // 8)
+    p = {"fcm": fcm, "tdnn_conv": r.he(5, ch, cfg.init_channels),
+         "tdnn_bn": bn(cfg.init_channels)}
+    ch = cfg.init_channels
+    for bi, (n_layers, k, dil) in enumerate(
+        zip(cfg.block_layers, cfg.block_kernels, cfg.block_dilations)
+    ):
+        layers = []
+        for li in range(n_layers):
+            cin = ch + li * cfg.growth_rate
+            bnc = cfg.bn_size * cfg.growth_rate
+            layers.append({
+                "nl1": bn(cin), "lin1_w": r.he(1, cin, bnc), "nl2": bn(bnc),
+                "cam": {
+                    "local_w": r.he(k, bnc, cfg.growth_rate),
+                    "fc1_w": r.he(bnc, bnc // 2), "fc1_b": r.zeros(bnc // 2),
+                    "fc2_w": r.he(bnc // 2, cfg.growth_rate), "fc2_b": r.zeros(cfg.growth_rate),
+                },
+            })
+        p[f"block{bi+1}"] = layers
+        ch = ch + n_layers * cfg.growth_rate
+        p[f"transit{bi+1}"] = {"bn": bn(ch), "w": r.he(1, ch, ch // 2)}
+        ch //= 2
+    p["out_bn"] = bn(ch)
+    p["dense_w"] = r.he(1, ch * 2, cfg.embedding_size)
+    p["dense_bn"] = bn_noaff(cfg.embedding_size)
+    return p
+
+
+def speaker_encoder_params_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
+    """Random SparkTTS speaker-encoder params (tree of speaker_encoder.convert)."""
+    r = _R(seed, dtype)
+    C = cfg.ecapa_channels
+
+    def bn(c):
+        return {"mean": r.zeros(c), "var": r.ones(c), "w": r.ones(c), "b": r.zeros(c)}
+
+    def res2():
+        width = C // 8
+        return {
+            "conv1_w": r.n(1, C, C), "conv1_b": r.zeros(C), "bn1": bn(C),
+            "conv2_w": r.n(1, C, C), "conv2_b": r.zeros(C), "bn2": bn(C),
+            "se1_w": r.n(C, 128), "se1_b": r.zeros(128),
+            "se2_w": r.n(128, C), "se2_b": r.zeros(C),
+            "res2": [
+                {"w": r.n(3, width, width), "b": r.zeros(width), "bn": bn(width)}
+                for _ in range(7)
+            ],
+        }
+
+    ecapa = {
+        "layer1_w": r.n(5, cfg.input_dim, C), "layer1_b": r.zeros(C),
+        "layer1_bn": bn(C),
+        "layer2": res2(), "layer3": res2(), "layer4": res2(),
+        "conv_w": r.n(1, 3 * C, 1536), "conv_b": r.zeros(1536),
+    }
+    d = cfg.latent_dim
+    layers = []
+    for _ in range(2):
+        inner = int(d * 4 * 2 / 3)
+        layers.append({
+            "to_q": r.n(d, 512), "to_kv": r.n(d, 1024), "to_out": r.n(512, d),
+            "ff1_w": r.n(d, inner * 2), "ff1_b": r.zeros(inner * 2),
+            "ff2_w": r.n(inner, d), "ff2_b": r.zeros(d),
+        })
+    perceiver = {
+        "proj_w": r.n(1536, d), "proj_b": r.zeros(d),
+        "latents": r.n(cfg.token_num, d),
+        "layers": layers, "norm": {"gamma": np.ones((d,), dtype)},
+    }
+    fsq = {
+        "project_in": {"w": r.n(d, len(cfg.fsq_levels)), "b": r.zeros(len(cfg.fsq_levels))},
+        "project_out": {"w": r.n(len(cfg.fsq_levels), d), "b": r.zeros(d)},
+    }
+    xvec = {  # ASTP (global-context) + BN + linear head, ecapa_tdnn.py:179-206
+        "pool_lin1_w": r.n(1, 3 * 1536, 128), "pool_lin1_b": r.zeros(128),
+        "pool_lin2_w": r.n(1, 128, 1536), "pool_lin2_b": r.zeros(1536),
+        "bn": bn(2 * 1536),
+        "lin_w": r.n(2 * 1536, cfg.out_dim), "lin_b": r.zeros(cfg.out_dim),
+    }
+    return {"ecapa": ecapa, "perceiver": perceiver, "fsq": fsq, "xvec": xvec}

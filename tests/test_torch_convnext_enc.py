@@ -187,3 +187,111 @@ def test_convert_enc_layout_both_ways(front):
         np.testing.assert_array_equal(a, b)
     fan = tts.convert_enc_layout(tpk, tp, cfg_p, target_batch=2)
     assert isinstance(fan.backbone, dict) and len(fan.down) == 2
+
+
+def _bf16_ulp(x: np.ndarray) -> float:
+    """One bf16 ulp (8 significant bits) at the largest magnitude of x."""
+    top = float(np.max(np.abs(x)))
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("wd,sd", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+def test_plain_front_step_bf16_matches_jax_kernel(front, wd, sd):
+    """bf16 weights with bf16 tails (the serving point) and with float32
+    tails (the mixed case JAX's kernel takes; float32 weights with bf16
+    tails it refuses), four chunks from zero tails.  z and every packed
+    buffer within 4 bf16 ulps of its largest value: both sides round to
+    bf16 at the same points, but XLA and ATen sum the products, the
+    depthwise taps and the LayerNorm statistics in other orders, so a sum
+    can land on the other side of a rounding boundary; such a one-ulp flip
+    passes through the later blocks' LayerNorms, which measured up to 2.5
+    ulps (two bf16 runs are as far apart as either is from the float32 one)."""
+    jp, tp = front
+    cfg = C.from_fields(J_PACKED)
+    jd = jnp.dtype(str(wd).split(".")[1])
+    jpw = jax.tree.map(lambda a: a.astype(jd), pce.packed_weights(jp, J_PACKED))
+    tpw = jax.tree.map(lambda t: t.to(wd), tp["enc_packed"])
+    js = pce.init_packed_state(J_PACKED, 1, jnp.dtype(str(sd).split(".")[1]))
+    ts = enc.init_packed_state(cfg, 1, sd)
+    rng = np.random.default_rng(9)
+    f32 = lambda x: np.asarray(x.float()) if isinstance(x, torch.Tensor) else \
+        np.asarray(x.astype(jnp.float32))
+    for c in range(4):
+        mel = rng.standard_normal((1, 4, 160)).astype(np.float32)
+        js, jz = pce.encoder_front_step(jpw, js, jnp.asarray(mel), J_PACKED, interpret=True)
+        ts, tz = enc.encoder_front_step(tpw, ts, torch.from_numpy(mel), cfg)
+        assert tz.dtype == wd and ts.stem.dtype == sd and ts.down.dtype == sd
+        for a, b in zip([tz, ts.stem, *ts.stages, ts.down], [jz, js.stem, *js.stages, js.down]):
+            a, b = f32(a), f32(b)
+            assert np.max(np.abs(a - b)) <= 4 * _bf16_ulp(b), f"chunk {c}"
+
+
+def test_plain_front_step_bf16_rounds_where_jax_kernel_rounds(front):
+    """The ulp bound above cannot tell a front that rounds where JAX's
+    kernel rounds from one that leaves the rounding out: a one-ulp flip
+    spreads through the LayerNorms to most values either way.  Over the
+    first stage's tails (the stem conv and LN and the first block) most
+    bf16 values still agree bit for bit where the rounding points match,
+    so the share that differs (`chip_smoke.flip_share`, the largest of four
+    chunks) stays within FRONT_FLIP_SHARE; the control, the plain front
+    with every activation in float32 (`chip_smoke.unrounded`), must exceed
+    it."""
+    jp, tp = front
+    cfg = C.from_fields(J_PACKED)
+    jpw = jax.tree.map(lambda a: a.astype(jnp.bfloat16), pce.packed_weights(jp, J_PACKED))
+    tpw = jax.tree.map(lambda t: t.to(torch.bfloat16), tp["enc_packed"])
+    control = chip_smoke.unrounded(enc.encoder_front_step_plain)
+    js = pce.init_packed_state(J_PACKED, 1, jnp.bfloat16)
+    ts = tc = enc.init_packed_state(cfg, 1, torch.bfloat16)
+    rng = np.random.default_rng(9)
+    share, share_c = 0.0, 0.0
+    for _ in range(4):
+        mel = rng.standard_normal((1, 4, 160)).astype(np.float32)
+        js, _ = pce.encoder_front_step(jpw, js, jnp.asarray(mel), J_PACKED, interpret=True)
+        ts, _ = enc.encoder_front_step_plain(tpw, ts, torch.from_numpy(mel), cfg)
+        tc, _ = control(tpw, tc, torch.from_numpy(mel), cfg)
+        want = [torch.from_numpy(np.array(js.stages[0].astype(jnp.float32)))]
+        share = max(share, chip_smoke.flip_share(ts.stages[:1], want))
+        share_c = max(share_c, chip_smoke.flip_share(tc.stages[:1], want))
+    assert share <= chip_smoke.FRONT_FLIP_SHARE < share_c, (share, share_c)
+
+
+# wider than the kernel's 512 threads, and a downsample product of 8
+WIDER = {
+    "wide": drep(J_DICT, backbone=ConvNeXtConfig(input_channels=160, depths=(1, 1, 1, 1),
+                                                  dims=(192, 384, 768, 1024)),
+                 quantizer=drep(J_DICT.quantizer, input_dim=1024), use_pallas_encoder=True),
+    "down8": drep(J_PACKED, quantizer=drep(J_DICT.quantizer, downsample_factor=(2, 2, 2))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDER))
+def test_plain_front_step_matches_jax_kernel_at_wider_geometries(name):
+    """Geometries the kernel took only after its rows followed the plan:
+    the plain front against JAX's interpreted kernel in float32, two
+    launches' worth of frames from random tails."""
+    jcfg = WIDER[name]
+    cfg = C.from_fields(jcfg)
+    tree = chip_smoke.front_tree_np(cfg)
+    tp = P.tokenizer_params(tree, "cpu")
+    tpw = enc.packed_weights(tp, cfg)
+    jpw = pce.packed_weights(jax.tree.map(jnp.asarray, tree), jcfg)
+    rng = np.random.default_rng(12)
+    z = enc.init_packed_state(cfg, 1)
+    r = lambda t: rng.standard_normal(t.shape).astype(np.float32)
+    leaves = [r(z.stem), *map(r, z.stages), r(z.down)]
+    ts = enc.PackedEncState(*[torch.from_numpy(leaves[0]),
+                              tuple(map(torch.from_numpy, leaves[1:-1])),
+                              torch.from_numpy(leaves[-1])])
+    js = pce.PackedEncState(jnp.asarray(leaves[0]), tuple(map(jnp.asarray, leaves[1:-1])),
+                            jnp.asarray(leaves[-1]))
+    T = enc.launch_frames(cfg)
+    for _ in range(2):
+        mel = rng.standard_normal((1, T, 160)).astype(np.float32)
+        js, jz = pce.encoder_front_step(jpw, js, jnp.asarray(mel), jcfg, interpret=True)
+        ts, tz = enc.encoder_front_step(tpw, ts, torch.from_numpy(mel), cfg)
+        assert tz.shape == jz.shape
+        np.testing.assert_allclose(tz.numpy(), np.asarray(jz), **TOL)
+        for a, b in zip(_packed_leaves(ts), _packed_leaves(js)):
+            np.testing.assert_allclose(a, b, **TOL)

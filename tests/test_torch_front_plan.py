@@ -4,8 +4,12 @@
 cooperative launch its columns of each phase's product; csrc/convnext_enc.cu
 walks the same phases and reads the plan as is.  The plan is checked at the
 published geometry (stem 160 -> 128, blocks 3-3-9-3 at 128..512, two
-stride-2 downsamples to 512; 132 blocks) and at two tiny ones, one with
-fewer column units than blocks in some phases.  Then `_model_call` runs a
+stride-2 downsamples to 512; 132 blocks), at two tiny ones, one with fewer
+column units than blocks in some phases, and at three the kernel takes
+since its rows follow the plan: rows of 1024 (wider than its 512
+threads), a downsample product of 8 (8 frames a launch), and widths that
+are no multiple of 4 without a downsample (ragged units, the final-LN
+phase).  Then `_model_call` runs a
 call phase by phase as the kernel does: each block recomputes the row-wise
 steps from the whole input rows, computes only its own columns over the
 whole K from the unit-packed matrices (`unit_weights`), reads what other
@@ -19,7 +23,9 @@ per parameter tree and `encode_stream` hands the same ones to every call.
 """
 
 import dataclasses
+import re
 from dataclasses import replace as drep
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,8 +49,22 @@ SMALL = C.replace(C.TokenizerConfig(), quantizer=C.BSQConfig(input_dim=16),
                   backbone=C.ConvNeXtConfig(input_channels=12, depths=(1, 2),
                                             dims=(8, 16)),
                   use_pallas_encoder=True)
+# rows wider than the kernel's 512 threads
+WIDE = C.replace(C.TokenizerConfig(), quantizer=C.BSQConfig(input_dim=1024),
+                 backbone=C.ConvNeXtConfig(input_channels=160, depths=(1, 1, 1, 1),
+                                           dims=(192, 384, 768, 1024)),
+                 use_pallas_encoder=True)
+# a downsample product of 8: one launch takes 8 frames
+DOWN8 = C.replace(TINY, quantizer=C.BSQConfig(input_dim=32, downsample_factor=(2, 2, 2)))
+# widths that are not multiples of 4, and no downsample (the final LN phase)
+RAGGED = C.replace(C.TokenizerConfig(), quantizer=C.BSQConfig(input_dim=22,
+                                                              downsample_factor=()),
+                   backbone=C.ConvNeXtConfig(input_channels=10, depths=(1, 2),
+                                             dims=(18, 22)),
+                   use_pallas_encoder=True)
 # (config, blocks)
-GEOMETRIES = {"published": (PUBLISHED, 132), "tiny": (TINY, 5), "small": (SMALL, 7)}
+GEOMETRIES = {"published": (PUBLISHED, 132), "tiny": (TINY, 5), "small": (SMALL, 7),
+              "wide": (WIDE, 132), "down8": (DOWN8, 6), "ragged": (RAGGED, 4)}
 
 
 @pytest.mark.parametrize("geo", sorted(GEOMETRIES))
@@ -55,7 +75,7 @@ def test_every_column_of_every_phase_is_owned_once(geo):
     assert plan.shape == (G, len(ph), 2) and plan.dtype == np.int32
     fewer = False
     for p, phase in enumerate(ph):
-        n_units = phase.N // enc.UNIT
+        n_units = -(-phase.N // enc.UNIT)
         owned = np.zeros(n_units, dtype=int)
         for first, n in plan[:, p]:
             assert n >= 0 and 0 <= first and first + n <= n_units
@@ -86,15 +106,42 @@ def test_published_geometry_has_46_phases():
 @pytest.mark.parametrize("geo", sorted(GEOMETRIES))
 def test_a_block_fits_and_the_kernel_takes_the_geometry(geo):
     cfg, _ = GEOMETRIES[geo]
-    enc.check_kernel_geometry(cfg)
-    assert 4 * (enc.ROWS * max(p.K for p in enc.phases(cfg))
-                + enc.EPILOGUE_INPUTS * enc.THREADS) <= MAX_SMEM
+    enc.check_kernel_geometry(cfg, 132)
+    assert enc.smem_bytes(cfg, 132) <= MAX_SMEM
 
 
 def test_the_kernel_refuses_rows_wider_than_its_threads():
+    """Rows wider than the 512 threads run (a thread takes several
+    columns); the kernel refuses only what the JAX kernel refuses (a
+    kernel size above 9) and a geometry whose rows overflow a block's
+    shared memory."""
     wide = C.replace(TINY, backbone=C.ConvNeXtConfig(depths=(1,), dims=(640,)))
-    with pytest.raises(ValueError, match="unsupported geometry"):
-        enc.check_kernel_geometry(wide)
+    enc.check_kernel_geometry(wide, 132)
+    huge = C.replace(TINY, backbone=C.ConvNeXtConfig(depths=(1,), dims=(8192,)))
+    with pytest.raises(ValueError, match="shared memory"):
+        enc.check_kernel_geometry(huge, 132)
+    k11 = C.replace(TINY, backbone=C.ConvNeXtConfig(depths=(1,), dims=(16,), kernel_size=11))
+    with pytest.raises(ValueError, match="kernel_size > 9"):
+        enc.check_kernel_geometry(k11, 132)
+
+
+def test_front_constants_match_the_cuda_source():
+    """The constants the wrapper mirrors from csrc/convnext_enc.cu, and the
+    build each geometry takes: the published one the narrow build, whose
+    records' integer fields K .. flags (PH_INTS) go in its launch
+    parameters; a front of more than NARROW_PHASES phases the wide one."""
+    src = (Path(enc.__file__).resolve().parent.parent / "csrc" / "convnext_enc.cu").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\w+);", src))
+    assert int(const["PH_FIELDS"]) == enc.PHASE_FIELDS
+    assert int(const["PH_PARAMS"]) == enc.NARROW_PHASES
+    assert int(const["RG"]) == enc.ROWS and int(const["SLOT"]) == enc.SLOT
+    fields = re.search(r"enum PhaseField \{(.*?)\};", src, re.S).group(1)
+    names = [n.strip() for n in fields.split(",")]
+    assert names[1:8] == ["PF_K", "PF_N", "PF_C", "PF_KIND", "PF_SLOT", "PF_F", "PF_FLAGS"]
+    assert enc._sizes(enc._geo_key(PUBLISHED), 132)["wide"] == 0
+    deep = C.replace(TINY, backbone=C.ConvNeXtConfig(depths=(48,), dims=(32,)))
+    assert len(enc.phases(deep)) > enc.NARROW_PHASES
+    assert enc._sizes(enc._geo_key(deep), 132)["wide"] == 1
 
 
 def _front(cfg, seed=41):
@@ -108,7 +155,7 @@ def test_units_are_column_slices_over_the_whole_k():
     for place, m, blocks in enc._matrices(pw):
         u = enc._unit_at(units, place)
         K = m.shape[0] // blocks
-        assert u.shape == (blocks, m.shape[1] // 4, K, 4) and u.is_contiguous()
+        assert u.shape == (blocks, -(-m.shape[1] // 4), K, 4) and u.is_contiguous()
         for b in range(blocks):
             for j in (0, u.shape[1] - 1):
                 torch.testing.assert_close(u[b, j], m[b * K : (b + 1) * K, 4 * j : 4 * j + 4],
@@ -123,7 +170,7 @@ def _cols(unit_stack, first, n):
 
 def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
     """The kernel's data flow in plain PyTorch (float32) for one call of T <=
-    4 frames: returns (state', z).  `kept` holds the flat buffers xa, xb and
+    `launch_frames` frames: returns (state', z).  `kept` holds the flat buffers xa, xb and
     g, carried across calls as the kernel keeps them."""
     bb, q = cfg.backbone, cfg.quantizer
     k, S, eps = bb.kernel_size, enc.SLOT, enc.LN_EPS
@@ -169,16 +216,19 @@ def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
     cur, oth = "xa", "xb"
     Tn, C = T, bb.dims[0]
     for p, phase in enumerate(enc.phases(cfg)):
+        stem_ln = p == 1  # the phase after the stem norms its rows first
         for b in order(G):
             first, n = plan[b, p]
             cols = torch.arange(4 * first, 4 * (first + n))
+            cols = cols[cols < phase.N]
             if phase.kind == "stem":
                 if n == 0 and b > 0:
                     continue
                 cin = bb.input_channels
                 full = torch.cat([st_in[0][:tr], mel[0]])
                 im2col = torch.cat([full[j : j + T] for j in range(k)], dim=1)
-                y = im2col @ _cols(units["stem_w"][0], first, n) + pw["stem_b"][0, cols]
+                y = im2col @ _cols(units["stem_w"][0], first, n)[:, : len(cols)] \
+                    + pw["stem_b"][0, cols]
                 write("xa", rows_idx(T, C, cols), y)
                 must.append(("xa", rows_idx(T, C, torch.arange(C))))
                 if b == 0:
@@ -189,8 +239,11 @@ def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
                 m = pw["mids"][i - 1]
                 if n == 0:
                     continue
-                x = ln(snap[cur][: Tn * C].reshape(Tn, C), m["ln_w"], m["ln_b"])
-                y = x @ _cols(units["mids"][i - 1][0], first, n) + m["b"][0, cols]
+                x = snap[cur][: Tn * C].reshape(Tn, C)
+                if stem_ln:
+                    x = ln(x, pw["stem_ln_w"], pw["stem_ln_b"])
+                x = ln(x, m["ln_w"], m["ln_b"])
+                y = x @ _cols(units["mids"][i - 1][0], first, n)[:, : len(cols)] + m["b"][0, cols]
                 write(oth, rows_idx(Tn, phase.N, cols), y)
                 must.append((oth, rows_idx(Tn, phase.N, torch.arange(phase.N))))
             elif phase.kind == "D":
@@ -200,11 +253,24 @@ def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
                 if n == 0:
                     continue
                 x = snap[cur][: Tn * C].reshape(Tn, C)
+                if stem_ln:
+                    x = ln(x, pw["stem_ln_w"], pw["stem_ln_b"])
                 if i == 0:
                     x = ln(x, pw["final_ln_w"], pw["final_ln_b"])
-                y = x.reshape(Tn // f, f * C) @ _cols(units["downs"][i]["w"][0], first, n)
+                y = x.reshape(Tn // f, f * C) @ _cols(units["downs"][i]["w"][0], first,
+                                                      n)[:, : len(cols)]
                 write(oth, rows_idx(Tn // f, phase.N, cols), y + dp["b"][0, cols])
                 must.append((oth, rows_idx(Tn // f, phase.N, torch.arange(phase.N))))
+            elif phase.kind == "L":
+                if n == 0:
+                    continue
+                x = snap[cur][: Tn * C].reshape(Tn, C)
+                if stem_ln:
+                    x = ln(x, pw["stem_ln_w"], pw["stem_ln_b"])
+                x = ln(x, pw["final_ln_w"], pw["final_ln_b"])
+                idx = rows_idx(Tn, C, cols)
+                write("z", idx, x[:, cols])
+                must.append(("z", rows_idx(Tn, C, torch.arange(C))))
             else:  # a block's P or Q
                 if phase.where.startswith("s"):
                     i, bi = map(int, phase.where[1:].split("b"))
@@ -221,7 +287,6 @@ def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
                     if n == 0 and b > 0:
                         continue
                     x = snap[cur][: Tn * C].reshape(Tn, C)
-                    stem_ln = phase.where == "s0b0"
                     if stem_ln:
                         x = ln(x, pw["stem_ln_w"], pw["stem_ln_b"])
                         if b == 0:
@@ -229,7 +294,8 @@ def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
                     full = torch.cat([tin[:tr], x])
                     h = sum(full[j : j + Tn] * sp["dw_w"][bi, j] for j in range(k))
                     h = ln(h + sp["dw_b"][bi], sp["ln_w"][bi], sp["ln_b"][bi])
-                    y = h @ _cols(su["pw1"][bi], first, n) + sp["pw1_b"][bi, cols]
+                    y = h @ _cols(su["pw1"][bi], first, n)[:, : len(cols)] \
+                        + sp["pw1_b"][bi, cols]
                     idx = rows_idx(Tn, hid, cols)
                     write("g", idx, F.gelu(y))
                     must.append(("g", rows_idx(Tn, hid, torch.arange(hid))))
@@ -241,13 +307,14 @@ def _model_call(pw, units, state, mel, cfg, n_blocks, order, kept):
                         continue
                     last = p == len(enc.phases(cfg)) - 1
                     g = snap["g"][: Tn * hid].reshape(Tn, hid)
-                    y = g @ _cols(su["pw2"][bi], first, n) + sp["pw2_b"][bi, cols]
+                    y = g @ _cols(su["pw2"][bi], first, n)[:, : len(cols)] \
+                        + sp["pw2_b"][bi, cols]
                     idx = rows_idx(Tn, C, cols)
                     out = snap[cur][idx] + sp["gamma"][bi, cols] * y
                     write("z" if last else cur, idx, out)
                     must.append(("z" if last else cur, rows_idx(Tn, C, torch.arange(C))))
         # where each phase leaves x
-        if phase.kind in "MD" or phase.where == "s0b0" and phase.kind == "P":
+        if phase.kind in ("M", "D") or stem_ln and phase.kind == "P":
             cur, oth = oth, cur
         if phase.kind == "M":
             C = phase.N
@@ -273,23 +340,25 @@ def _leaves(st):
     return [st.stem, *st.stages, st.down]
 
 
-@pytest.mark.parametrize("geo", ["tiny", "small"])
+@pytest.mark.parametrize("geo", ["tiny", "small", "wide", "down8", "ragged"])
 @pytest.mark.parametrize("n_blocks", [3, 5, 132])
 def test_model_of_the_kernel_matches_the_plain_step(geo, n_blocks):
     cfg, _ = GEOMETRIES[geo]
     pw, units = _front(cfg, seed=n_blocks)
     rng = np.random.default_rng(11)
     shuffled = lambda G: rng.permutation(G).tolist()
-    n = enc.ROWS * enc.widest(cfg)
+    n = enc.kept_scratch(cfg, "cpu")["xa"].numel()
     kept = {"xa": torch.full((n,), float("nan")), "xb": torch.full((n,), float("nan")),
             "g": torch.full((4 * n,), float("nan"))}
     sm = sp = _state(cfg, rng)
-    for chunk in range(4):
-        mel = torch.from_numpy(rng.standard_normal((1, 4, cfg.backbone.input_channels))
+    T = enc.launch_frames(cfg)
+    Tz = T // int(np.prod(cfg.quantizer.downsample_factor))
+    for chunk in range(4 if geo in ("tiny", "small") else 2):
+        mel = torch.from_numpy(rng.standard_normal((1, T, cfg.backbone.input_channels))
                                .astype(np.float32))
         sm, zm = _model_call(pw, units, sm, mel, cfg, n_blocks, shuffled, kept)
         sp, zp = enc.encoder_front_step_plain(pw, sp, mel, cfg)
-        assert zm.shape == zp.shape == (1, 1, cfg.quantizer.input_dim)
+        assert zm.shape == zp.shape == (1, Tz, cfg.quantizer.input_dim)
         for a, b in zip([zm, *_leaves(sm)], [zp, *_leaves(sp)]):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0,
                                        err_msg=f"chunk {chunk}")

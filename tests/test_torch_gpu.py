@@ -135,7 +135,7 @@ def test_ring_timeline_phases_are_separated_by_grid_barriers(size):
 def test_head_kernel_matches_plain(size):
     _need_card()
     hcfg = C.HiFiGANConfig() if size == "full" else TINY_HEADS[size]
-    assert chip_smoke.compare_head(hcfg, "cuda", 6, True) <= chip_smoke.TOL
+    assert chip_smoke.compare_head(hcfg, "cuda", 6, True)[0] <= chip_smoke.TOL
 
 
 @pytest.mark.gpu
@@ -173,7 +173,43 @@ def test_front_kernel_matches_plain(size):
     stage."""
     _need_card()
     tcfg = C.all_five(C.PipelineConfig()).tokenizer if size == "full" else TINY_FRONT
-    assert chip_smoke.compare_front(tcfg, "cuda", 6, True) <= chip_smoke.TOL
+    assert chip_smoke.compare_front(tcfg, "cuda", 6, True)[0] <= chip_smoke.TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", ["bf16", "bf16_weights", "bf16_tails"])
+@pytest.mark.parametrize("size", ["full", *sorted(TINY_HEADS)])
+def test_head_kernel_in_bf16_matches_plain(size, dtypes):
+    """bf16 weights and tails, and each mixed with float32: within
+    HEAD_BF16_ULPS bf16 ulps where bf16 rounds (with bf16 weights also
+    within HEAD_FLIP_SHARE, `chip_smoke.flip_share`), 1e-3 where both are
+    float32 but for the rounding of one operand."""
+    _need_card()
+    hcfg = C.HiFiGANConfig() if size == "full" else TINY_HEADS[size]
+    wd, sd = {"bf16": (torch.bfloat16,) * 2, "bf16_weights": (torch.bfloat16, torch.float32),
+              "bf16_tails": (torch.float32, torch.bfloat16)}[dtypes]
+    chip_smoke.compare_head(hcfg, "cuda", 4, True, wd, sd)
+
+
+# more phases than the narrow build takes (ops/convnext_enc.py NARROW_PHASES)
+DEEP_FRONT = C.replace(TINY_FRONT, backbone=C.ConvNeXtConfig(depths=(48,), dims=(32,)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "bf16_weights", "bf16_tails"])
+@pytest.mark.parametrize("size", ["full", "tiny", "wide", "down8", "deep"])
+def test_front_kernel_at_every_dtype_and_wider_geometries(size, dtypes):
+    """The published front, a tiny one, rows wider than the kernel's 512
+    threads, a downsample product of 8 and more phases than the narrow
+    build takes, in float32, bf16 and mixed."""
+    _need_card()
+    full = C.all_five(C.PipelineConfig()).tokenizer
+    tcfg = {"full": full, "tiny": TINY_FRONT, "deep": DEEP_FRONT,
+            **chip_smoke.wider_fronts(full)}[size]
+    wd, sd = {"f32": (torch.float32,) * 2, "bf16": (torch.bfloat16,) * 2,
+              "bf16_weights": (torch.bfloat16, torch.float32),
+              "bf16_tails": (torch.float32, torch.bfloat16)}[dtypes]
+    chip_smoke.compare_front(tcfg, "cuda", 4, True, wd, sd)
 
 
 @pytest.mark.gpu

@@ -268,7 +268,7 @@ def test_plan_constants_match_the_cuda_source():
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     for name in ("KC", "PART", "MAX_CONV", "HDR", "LVL"):
         assert int(const[name]) == getattr(headops, name), name
-    launched = re.findall(r"launch_pdl\(level_kernel<(\d+), (\d+)>", src)
+    launched = re.findall(r"launch_pdl\(level_kernel<(\d+), (\d+), W, S>", src)
     assert [(int(a), int(b)) for a, b in launched] == list(headops.TILES)
     enum = re.search(r"enum Field \{(.*?)\};", src, re.S).group(1)
     names = [n.strip() for n in enum.split(",")]

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from streamvoiceanon_tpu.config import HiFiGANConfig
 from streamvoiceanon_tpu.models import hifigan as jhg
 from streamvoiceanon_tpu.ops import pallas_hifigan as ph
@@ -158,3 +159,75 @@ def test_convert_head_layout_both_ways():
     back = tvoc.convert_head_layout(packed, tcfg, target_batch=3)
     for a, b in zip(jax.tree.leaves(back["head"]), jax.tree.leaves(d["head"])):
         assert torch.equal(a, b)
+
+
+def _bf16_ulp(x: np.ndarray) -> float:
+    """One bf16 ulp (8 significant bits) at the largest magnitude of x."""
+    top = float(np.max(np.abs(x)))
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+@pytest.mark.parametrize("wd,sd", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+def test_plain_head_bf16_matches_jax_kernel(name, wd, sd):
+    """bf16 weights with bf16 tails (the serving point) and with float32
+    tails (the mixed case JAX's kernel takes; float32 weights with bf16
+    tails it refuses), five chunks from zero tails.  The waveform comes out
+    in the weights' dtype and the tails in the state's.  Every output
+    within 2 bf16 ulps of its largest value: both sides round at the same
+    points (each conv after its bias, the residual sums, the branch mean,
+    SiLU), but XLA and ATen sum a conv's products in other orders, so a
+    sum can land on the other side of a rounding boundary; such a one-ulp
+    flip reaches the later convs through weights of norm below one, and
+    measured at most one ulp."""
+    jcfg, tcfg = _cfgs(name, use_pallas_stream=True)
+    pj, pt = _params(jcfg, 0)
+    jd, js_d = (jnp.dtype(str(t).split(".")[1]) for t in (wd, sd))
+    pw = jax.tree.map(lambda a: a.astype(jd),
+                      ph.packed_weights(jax.tree.map(jnp.asarray, pj), jcfg))
+    tw = jax.tree.map(lambda t: t.to(wd), headops.packed_weights(pt, tcfg))
+    js = ph.init_packed_state(jcfg, 1, js_d)
+    ts = headops.init_packed_state(tcfg, 1, sd)
+    rng = np.random.default_rng(1)
+    f32 = lambda x: np.asarray(x.float()) if isinstance(x, torch.Tensor) else \
+        np.asarray(x.astype(jnp.float32))
+    for c in range(5):
+        x = rng.standard_normal((1, 4, jcfg.num_mels)).astype(np.float32)
+        js, a = ph.head_stream_step(pw, js, jnp.asarray(x), jcfg, interpret=True)
+        ts, b = headops.head_stream_step(tw, ts, torch.from_numpy(x), tcfg)
+        assert b.dtype == wd and all(t.dtype == sd for t in _leaves(ts))
+        for got, ref in zip([b, *_leaves(ts)], [a, *_leaves(js)]):
+            got, ref = f32(got), f32(ref)
+            assert np.max(np.abs(got - ref)) <= 2 * _bf16_ulp(ref), f"chunk {c}"
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+def test_plain_head_bf16_rounds_where_jax_kernel_rounds(name):
+    """The ulp bound above cannot tell a head that rounds where JAX's
+    kernel rounds from one that leaves the rounding out.  Where the rounding
+    points match, most bf16 values agree bit for bit, so the share that
+    differs (`chip_smoke.flip_share` over the tails and the wave, the
+    largest of five chunks) stays within HEAD_FLIP_SHARE; the control,
+    the plain head with every activation in float32
+    (`chip_smoke.unrounded`), must exceed it."""
+    jcfg, tcfg = _cfgs(name, use_pallas_stream=True)
+    pj, pt = _params(jcfg, 0)
+    pw = jax.tree.map(lambda a: a.astype(jnp.bfloat16),
+                      ph.packed_weights(jax.tree.map(jnp.asarray, pj), jcfg))
+    tw = jax.tree.map(lambda t: t.to(torch.bfloat16), headops.packed_weights(pt, tcfg))
+    control = chip_smoke.unrounded(headops.head_stream_step_plain)
+    js = ph.init_packed_state(jcfg, 1, jnp.bfloat16)
+    ts = tc = headops.init_packed_state(tcfg, 1, torch.bfloat16)
+    rng = np.random.default_rng(1)
+    f32 = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32)))
+    share, share_c = 0.0, 0.0
+    for _ in range(5):
+        x = rng.standard_normal((1, 4, jcfg.num_mels)).astype(np.float32)
+        js, a = ph.head_stream_step(pw, js, jnp.asarray(x), jcfg, interpret=True)
+        ts, b = headops.head_stream_step_plain(tw, ts, torch.from_numpy(x), tcfg)
+        tc, c = control(tw, tc, torch.from_numpy(x), tcfg)
+        want = [f32(a), *map(f32, _leaves(js))]
+        share = max(share, chip_smoke.flip_share([b, *_leaves(ts)], want))
+        share_c = max(share_c, chip_smoke.flip_share([c, *_leaves(tc)], want))
+    assert share <= chip_smoke.HEAD_FLIP_SHARE < share_c, (share, share_c)

@@ -41,6 +41,10 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_sources_import_nothing_of_jax():
+    sources = {str(p.relative_to(PORT)) for p in _port_sources() if PORT in p.parents}
+    assert {"audio/resample.py", "audio/fbank.py", "audio/io.py", "models/campplus.py",
+            "models/speaker_encoder.py", "models/windowed_transformer.py",
+            "models/tokenizer.py", "runtime/pipeline.py"} <= sources
     bad = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -59,6 +63,9 @@ def test_importing_every_port_module_loads_no_jax():
         "import streamvoiceanon_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'streamvoiceanon_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert {'streamvoiceanon_tpu_torch.audio.fbank',\n"
+        "        'streamvoiceanon_tpu_torch.models.speaker_encoder',\n"
+        "        'streamvoiceanon_tpu_torch.runtime.pipeline'} <= set(sys.modules)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'streamvoiceanon_tpu']\n"
@@ -133,8 +140,9 @@ def test_unported_program_sets_are_refused():
     """Every program set of the JAX package's kernels builds its stream
     states: `tpu_optimized` (flat ring, packed head), `all_five` (also the
     packed encoder state) and `per_head_decode` (the unpadded per-head KV
-    cache).  The windowed transformer's LConv1d branch (`dw_conv`), not
-    ported yet, raises rather than run another program."""
+    cache).  With the windowed transformer's LConv1d branch (`dw_conv`)
+    the ring keeps the rotated frame, under `tpu_optimized` too, and
+    carries the branch's conv tail."""
     from streamvoiceanon_tpu_torch.models import dual_ar, hifigan, tokenizer_stream
 
     cfg = C.tpu_optimized(C.PipelineConfig())
@@ -152,8 +160,10 @@ def test_unported_program_sets_are_refused():
     assert d.k_cache.shape == (12, 1, 12, 2048, 64) and d.pos == 0
     assert dual_ar.init_state(cfg.arvc.decoder, device="meta").k_cache.shape == (12, 1, 2048,
                                                                                  768)
-    with pytest.raises(NotImplementedError, match="dw_conv"):
-        tokenizer_stream.ring_init(C.replace(cfg.tokenizer.transformer, dw_conv=True))
+    dw = C.replace(cfg.tokenizer.transformer, dw_conv=True)
+    ring = tokenizer_stream.ring_init(dw, device="meta")
+    assert ring.k_ring.shape == (8, 1, 8, 512, 64)
+    assert ring.conv_tail.shape == (8, 1, dw.conv_kernel_size - 1, 512)
 
 
 _CTYPE = {"int": "c_int", "float": "c_float"}
