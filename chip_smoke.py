@@ -109,9 +109,33 @@ Phases, each reported on its own lines:
    with its set-up ms; `VoiceConverter.infer` of a 4 s source (greedy,
    delay 2): one fast-loop launch a generated frame, one slow-step launch
    a frame after the first, its ms and real-time factor;
+6. serving on phase 3's weights and cut geometry (`serving`):
+   `RealtimeEngine` under tpu_optimized (sampled), warmed, its refill
+   programs run, snapshotted, then fed 40 chunks by a producer thread at
+   the real rate: delivery ms p50/p90 (`latency_log`), the rings' overruns
+   and underruns, the largest fetch batch; slow, fast and head launches
+   equal to the frames, ring launches to the tokens; its output equal
+   (within 1e-5 of the largest sample) to a `restore`d copy driven
+   synchronously with the same chunks; one `process_chunk_async` under
+   `torch.cuda.set_sync_debug_mode("error")`; a short `all_five` engine
+   run (front launches = tokens).  `MultiStreamEngine` at batch 4 under
+   per_head_decode (greedy), built by `fanout(4)`, four producer threads:
+   tick ms p50/p90, missed ticks, audio-seconds a second, 12 attention
+   launches a frame and no other kernel, each stream equal to the
+   restored fanned-out session driven synchronously, and the share of
+   codes equal to a directly built batch-4 session (reported).
+   `transfer` of a session prepared on the CPU to the card, 16 chunks with
+   the launch check, its codes against a session prepared on the card (at
+   least 90 % with the LM and state in float32; reported in bf16).  Window
+   mode, 8 chunks (one slow-step and one fast-loop launch a frame).
+   `BatchServer` of four 4 s sources under per_head_decode (12 attention
+   launches a frame; ms and real-time factor in bf16; with the LM in
+   float32 at least 90 % of the codes equal to four single
+   `VoiceConverter.infer` calls).  `cli.main(["convert", ...])` on
+   synthetic wavs: the written wav's length;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
-   session that runs it), the card line, and as the last line
-   {"ok": true, "device": {...}}.
+   session that runs it, plus phase 6's counted runs), the card line, and
+   as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is nonzero and no result line is
 printed.  Without a CUDA card, or without the package beside this file, it
@@ -1819,6 +1843,7 @@ def prompt_side(cv, device, scfg, wrappers):
     if wav.shape != (Ts * SPF,) or not np.all(np.isfinite(wav)) or not np.any(wav != 0):
         raise AssertionError(f"infer: wav {wav.shape}, finite {np.all(np.isfinite(wav))}")
     out["infer"] = {"s": infer_s, "rtf": infer_s / (len(src) / 44100.0), "frames": frames}
+    out["converter"] = vc.converter
     log(f"[5] VoiceConverter.infer, 4 s source ({Ts} frames, {frames} generated), 10 s "
         f"reference, greedy, delay 2: {1e3 * infer_s:.1f} ms, real-time factor "
         f"{out['infer']['rtf']:.4f}; launches {counts}")
@@ -1847,11 +1872,11 @@ def head_flops(hcfg, T0: int) -> int:
 
 
 def build_session(cfg, device, scfg, sampling, lm_dtype, state_dtype, seed: int = 0,
-                  converter=None, dsp_dtype=None):
+                  converter=None, dsp_dtype=None, **session_kw):
     """A StreamSession under `cfg`, on seeded random weights (the tokenizer
     and vocoder in `dsp_dtype`, float32 unless given), or on the weights of
     `converter` (built under a program set whose parameter tree holds what
-    `cfg` needs)."""
+    `cfg` needs); `session_kw` go to the session (`incremental`)."""
     import dataclasses
 
     import torch
@@ -1880,7 +1905,7 @@ def build_session(cfg, device, scfg, sampling, lm_dtype, state_dtype, seed: int 
         timbre=rng.standard_normal((1, 32, cfg.arvc.context_dim)).astype(np.float32),
         ref_tokens=rng.integers(0, d.vocab_size, (1, Tp)).astype(np.int32),
         ref_codes=rng.integers(0, d.codebook_size, (1, d.num_codebooks, Tp)).astype(np.int32),
-        state_dtype=state_dtype)
+        state_dtype=state_dtype, **session_kw)
     if str(device).startswith("cuda"):
         torch.cuda.synchronize()
     return sess, rng, t_params, time.time() - t0, cv
@@ -2104,6 +2129,484 @@ def batched_decode(ap, acfg, device, wrappers, batch: int = 4, Tp: int = 483,
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving
+# ---------------------------------------------------------------------------
+
+
+def recorded_inputs(sess):
+    """Record every chunk given to `sess.process_chunk_async` (an instance
+    attribute over the method), so that a synchronous copy can be driven
+    with exactly the blocks an engine assembled."""
+    seen, orig = [], sess.process_chunk_async
+
+    def rec(chunk):
+        seen.append(np.array(chunk, np.float32, copy=True))
+        return orig(chunk)
+
+    sess.process_chunk_async = rec
+    return seen
+
+
+def paced(push, src, n: int, period: float = FRAME_MS / 1e3) -> None:
+    """Push n chunks of src at the real rate, one every `period` s."""
+    t_next = time.perf_counter()
+    for i in range(n):
+        push(src[i * SPF : (i + 1) * SPF])
+        t_next += period
+        dt = t_next - time.perf_counter()
+        if dt > 0:
+            time.sleep(dt)
+
+
+def wait_for(cond, seconds: float, what: str) -> None:
+    deadline = time.time() + seconds
+    while not cond():
+        if time.time() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def zero(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_counts(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def same_within(got, want, what: str) -> float:
+    """Max abs difference, which must be within 1e-5 of want's largest sample."""
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not scale > 0 or not err <= 1e-5 * scale:
+        raise AssertionError(f"{what}: shapes {got.shape} / {want.shape}, max abs difference "
+                             f"{err:.3e} against 1e-5 of the largest sample {scale:.3e}")
+    return err
+
+
+def pct(xs):
+    return float(np.percentile(xs, 50)), float(np.percentile(xs, 90))
+
+
+def sync_free_chunk(sess, chunk) -> float:
+    """One `process_chunk_async` behind a device sleep of about half a
+    second, under `torch.cuda.set_sync_debug_mode("error")`: a host
+    synchronisation that the debug mode sees raises, and any other (the
+    mode does not see every kind) would wait out the sleep, which must
+    still be running when the call returns.  Returns the call's host ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)  # about 0.5 s at the H100's 1.98 GHz
+    asleep = torch.cuda.Event()
+    asleep.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        wav = sess.process_chunk_async(chunk)
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if asleep.query():
+        raise AssertionError(f"process_chunk_async waited for the device ({ms:.1f} ms)")
+    if not (wav.is_cuda and tuple(wav.shape) == (SPF,)):
+        raise AssertionError(f"process_chunk_async: {wav.device} {tuple(wav.shape)}")
+    torch.cuda.synchronize()
+    return ms
+
+
+def realtime_phase(cv, device, scfg, wrappers, n: int = 40):
+    """`RealtimeEngine` under tpu_optimized at batch 1, sampled: warm-up and
+    the refill programs, a snapshot, then a producer thread pushing n
+    chunks at the real rate; the four kernels' launches over the run; the
+    engine's output against a session restored from the snapshot and
+    driven synchronously through `process_chunk`.  Then a short
+    `all_five` engine run (front launches = tokens)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.runtime.realtime import RealtimeEngine
+    from streamvoiceanon_tpu_torch.runtime.streaming import StreamSession
+
+    sess, rng, _, _, _ = build_session(C.tpu_optimized(C.PipelineConfig()), device, scfg,
+                                       C.SamplingConfig(), torch.bfloat16, torch.bfloat16,
+                                       seed=61, converter=cv)
+    eng = RealtimeEngine(sess, ring_seconds=4.0)
+    eng.warm_up()
+    sess.warm_refill_programs()
+    snap = sess.snapshot()
+    src = (rng.standard_normal(n * SPF) * 0.1).astype(np.float32)
+    chk = StreamSession.restore(sess.cv, snap)
+    chk.process_chunk_async(src[:SPF])
+    async_ms = sync_free_chunk(chk, src[SPF : 2 * SPF])
+    seen = recorded_inputs(sess)
+    f0, k0 = sess.frames_decoded, sess.tokens_seen
+    zero(wrappers)
+    eng.start()
+    try:
+        paced(eng.push_input, src, n)
+        wait_for(lambda: eng.chunks_processed >= n, 60, "the engine's chunks")
+    finally:
+        eng.stop()
+    counts = read_counts(wrappers)
+    frames, tokens = sess.frames_decoded - f0, sess.tokens_seen - k0
+    want = counts_of(slow=frames, fast=frames, ring=tokens, head=frames)
+    if counts != want or frames != n:
+        raise AssertionError(f"RealtimeEngine: launch counts {counts}, expected {want} "
+                             f"({frames} frames of {n} chunks)")
+    got = eng.pull_output(n * SPF)
+    ref = StreamSession.restore(sess.cv, snap)
+    err = same_within(got, np.concatenate([ref.process_chunk(x) for x in seen]),
+                      "RealtimeEngine against the restored session")
+    lat = [1e3 * (t1 - t0) for t0, t1 in eng.latency_log]
+    out = {"counts": counts, "delivery_ms": pct(lat), "err": err, "async_ms": async_ms,
+           "in_overruns": eng.in_ring.overruns(), "in_underruns": eng.in_ring.underruns(),
+           "out_overruns": eng.out_ring.overruns(), "out_underruns": eng.out_ring.underruns(),
+           "max_fetch_batch": eng.max_fetch_batch}
+    log(f"[6] RealtimeEngine tpu_optimized, batch 1, {n} chunks pushed at the real rate "
+        f"({FRAME_MS:.2f} ms): delivery ms p50 {out['delivery_ms'][0]:.3f} p90 "
+        f"{out['delivery_ms'][1]:.3f} (chunk read to output delivered); rings in "
+        f"overruns {out['in_overruns']} underruns {out['in_underruns']}, out overruns "
+        f"{out['out_overruns']} underruns {out['out_underruns']}; max fetch batch "
+        f"{out['max_fetch_batch']}; launches {counts}; against the restored session driven "
+        f"synchronously: max abs difference {err:.3e}; one process_chunk_async under "
+        f"set_sync_debug_mode('error') returned in {async_ms:.3f} ms of host time while "
+        "a device sleep before it still ran (no host synchronisation)")
+
+    five, frng, _, _, _ = build_session(C.all_five(C.PipelineConfig()), device, scfg,
+                                        C.SamplingConfig(), torch.bfloat16, torch.bfloat16,
+                                        seed=62, converter=cv)
+    eng5 = RealtimeEngine(five, ring_seconds=4.0)
+    eng5.warm_up()
+    m = 12
+    src5 = (frng.standard_normal(m * SPF) * 0.1).astype(np.float32)
+    f0, k0 = five.frames_decoded, five.tokens_seen
+    zero(wrappers)
+    eng5.start()
+    try:
+        eng5.push_input(src5)
+        wait_for(lambda: eng5.chunks_processed >= m, 60, "the all_five engine's chunks")
+    finally:
+        eng5.stop()
+    c5 = read_counts(wrappers)
+    frames, tokens = five.frames_decoded - f0, five.tokens_seen - k0
+    want = counts_of(slow=frames, fast=frames, ring=tokens, head=frames, enc=tokens)
+    if c5 != want or frames != m:
+        raise AssertionError(f"all_five RealtimeEngine: launch counts {c5}, expected {want}")
+    out5 = eng5.pull_output(m * SPF)
+    if not (np.all(np.isfinite(out5)) and np.any(out5 != 0)):
+        raise AssertionError("all_five RealtimeEngine: output not finite or silent")
+    log(f"[6] RealtimeEngine all_five, {m} chunks pushed at once: launches {c5}; max fetch "
+        f"batch {eng5.max_fetch_batch}")
+    out["all_five_counts"] = c5
+    return out
+
+
+def multistream_phase(cv, device, scfg, wrappers, B: int = 4, n: int = 40):
+    """`MultiStreamEngine` under per_head_decode at batch B, greedy, built by
+    `fanout(B)` from a one-stream session warmed by delay + 3 chunks; four
+    producer threads push n chunks each at the real rate.  12 decode-
+    attention launches a frame and no slow-step or fast-loop launch (batch
+    1 kernels); each stream's output against the fanned-out session
+    restored from a snapshot and driven synchronously with the blocks the
+    engine assembled.  Reported beside it: the share of codes equal to a
+    B-stream session built directly and warmed with the same chunks (its
+    prompt prefill and warm frames ran at batch B, the fanned-out one's at
+    batch 1 on the batch-1 kernels: bf16 sums in other orders)."""
+    import threading
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.runtime.realtime import MultiStreamEngine
+    from streamvoiceanon_tpu_torch.runtime.streaming import StreamSession
+
+    greedy = C.SamplingConfig(greedy=True)
+    cfg = C.per_head_decode(C.PipelineConfig())
+    one, rng, _, _, _ = build_session(cfg, device, scfg, greedy, torch.bfloat16,
+                                      torch.bfloat16, seed=63, converter=cv)
+    warm = (rng.standard_normal((scfg.delay + 3) * SPF) * 0.1).astype(np.float32)
+    for i in range(scfg.delay + 3):
+        one.process_chunk(warm[i * SPF : (i + 1) * SPF])
+    multi = one.fanout(B)
+    snap = multi.snapshot()
+    eng = MultiStreamEngine(multi, ring_seconds=4.0)
+    seen = recorded_inputs(multi)
+    src = (rng.standard_normal((B, n * SPF)) * 0.1).astype(np.float32)
+    f0 = multi.frames_decoded
+    zero(wrappers)
+    eng.start()
+    try:
+        producers = [threading.Thread(target=paced, args=(
+            lambda x, i=i: eng.push_input(i, x), src[i], n)) for i in range(B)]
+        for t in producers:
+            t.start()
+        for t in producers:
+            t.join(timeout=60)
+        wait_for(lambda: all(r.available() < eng.chunk for r in eng.in_rings)
+                 and eng.ticks_processed == len(seen), 60, "the multistream engine's ticks")
+    finally:
+        eng.stop()
+    counts = read_counts(wrappers)
+    frames = multi.frames_decoded - f0
+    want = counts_of(attn=cfg.arvc.decoder.n_layer * frames)
+    if counts != want or frames != len(seen):
+        raise AssertionError(f"MultiStreamEngine: launch counts {counts}, expected {want}")
+    ticks = eng.ticks_processed
+    got = np.stack([eng.pull_output(i, ticks * SPF) for i in range(B)])
+    ref = StreamSession.restore(multi.cv, snap)
+    direct = StreamSession(
+        one.cv, scfg, sampling=greedy, seed=0, state_dtype=torch.bfloat16, batch=B,
+        style=one.style.float().repeat(B, 1), timbre=one.timbre.float().repeat(B, 1, 1),
+        ref_tokens=one.ref_tokens.repeat(B, 1), ref_codes=one.ref_codes.repeat(B, 1, 1))
+    for i in range(scfg.delay + 3):
+        direct.process_chunk(np.repeat(warm[None, i * SPF : (i + 1) * SPF], B, 0))
+    outs, agree, compared = [], 0, 0
+    for x in seen:
+        outs.append(ref.process_chunk(x))
+        direct.process_chunk(x)
+        a, b = ref.fstate.code_ring[:, :, -1], direct.fstate.code_ring[:, :, -1]
+        agree += int((a == b).sum())
+        compared += a.numel()
+    want_wav = np.concatenate(outs, axis=-1)
+    err = max(same_within(got[i], want_wav[i], f"MultiStreamEngine stream {i}")
+              for i in range(B))
+    lat = [1e3 * (t1 - t0) for t0, t1 in eng.latency_log]
+    span = eng.latency_log[-1][1] - eng.latency_log[0][0]
+    out = {"counts": counts, "tick_ms": pct(lat), "missed": list(eng.missed), "err": err,
+           "audio_s_per_s": B * ticks * (SPF / 44100.0) / span, "ticks": ticks,
+           "direct_agree": (agree, compared), "max_fetch_batch": eng.max_fetch_batch}
+    log(f"[6] MultiStreamEngine per_head_decode, fanout({B}), {n} chunks a stream from "
+        f"{B} producer threads at the real rate: {ticks} ticks, tick ms p50 "
+        f"{out['tick_ms'][0]:.3f} p90 {out['tick_ms'][1]:.3f}, missed {out['missed']}, "
+        f"{out['audio_s_per_s']:.3f} audio-s/s delivered, max fetch batch "
+        f"{out['max_fetch_batch']}; launches {counts}; each stream against the restored "
+        f"session driven synchronously: max abs difference {err:.3e}; codes equal to a "
+        f"directly built {B}-stream session: {agree}/{compared}")
+    return out
+
+
+def transfer_phase(cv, device, scfg, wrappers, n: int = 16):
+    """`transfer` from the CPU to the card: a session prepared on the CPU
+    (prompt, delay and 3 warm chunks, on phase 3's weights carried to the
+    CPU) continues on the card for n chunks under tpu_optimized, with its
+    launch check; the share of its codes equal to a session prepared on
+    the card.  Greedy.  Gated with the LM and the state in float32, where
+    the CPU's and the card's sums differ in the last float32 bits; reported
+    at the bf16 serving point, where one flipped code sends a free-running
+    stream elsewhere."""
+    import dataclasses
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch import params as P
+
+    cpu = torch.device("cpu")
+    to_cpu = lambda tree: (tree.cpu() if torch.is_tensor(tree) else
+                           {k: to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict)
+                           else [to_cpu(v) for v in tree] if isinstance(tree, (list, tuple))
+                           else tree)
+    greedy = C.SamplingConfig(greedy=True)
+    cfg = C.tpu_optimized(C.PipelineConfig())
+    out, counted = {}, counts_of()
+    for label, dt, gate in (("float32", torch.float32, True),
+                            ("bf16", torch.bfloat16, False)):
+        card = dataclasses.replace(cv, cfg=cfg, arvc_params=P.cast_tree(cv.arvc_params, dt))
+        host = dataclasses.replace(card, tokenizer_params=to_cpu(cv.tokenizer_params),
+                                   vocoder_params=to_cpu(cv.vocoder_params),
+                                   arvc_params=to_cpu(card.arvc_params), device=cpu)
+        sessions = {}
+        t0 = time.perf_counter()
+        for where, conv, d in (("cpu", host, "cpu"), ("card", card, device)):
+            sess, rng, _, _, _ = build_session(cfg, d, scfg, greedy, dt, dt, seed=64,
+                                               converter=conv)
+            src = (rng.standard_normal((scfg.delay + 3 + n) * SPF) * 0.1).astype(np.float32)
+            for i in range(scfg.delay + 3):
+                sess.process_chunk(src[i * SPF : (i + 1) * SPF])
+            sessions[where] = sess
+        prep_s = time.perf_counter() - t0
+        moved = sessions["cpu"].transfer(card)
+        f0, k0 = moved.frames_decoded, moved.tokens_seen
+        zero(wrappers)
+        codes = []
+        for i in range(scfg.delay + 3, scfg.delay + 3 + n):
+            wav = moved.process_chunk(src[i * SPF : (i + 1) * SPF])
+            if wav.shape != (SPF,) or not np.all(np.isfinite(wav)):
+                raise AssertionError(f"transfer: chunk {i} {wav.shape} not finite")
+            codes.append(moved.fstate.code_ring[:, :, -1].clone())
+        counts = read_counts(wrappers)
+        frames, tokens = moved.frames_decoded - f0, moved.tokens_seen - k0
+        want = counts_of(slow=frames, fast=frames, ring=tokens, head=frames)
+        if counts != want or frames != n:
+            raise AssertionError(f"transfer ({label}): launch counts {counts}, expected {want}")
+        counted = {k: counted[k] + counts[k] for k in counted}
+        agree = 0
+        for i, c in zip(range(scfg.delay + 3, scfg.delay + 3 + n), codes):
+            sessions["card"].process_chunk(src[i * SPF : (i + 1) * SPF])
+            agree += int((sessions["card"].fstate.code_ring[:, :, -1] == c).sum())
+        total = n * cfg.arvc.decoder.num_codebooks
+        out[label] = {"agree": (agree, total), "prep_s": prep_s}
+        log(f"[6] transfer CPU -> card, LM and state in {label}, greedy: prep (prompt, delay, "
+            f"3 warm chunks on the CPU, the same on the card) {prep_s:.1f} s; {n} chunks on "
+            f"the card, launches {counts}; codes equal to the session prepared on the card: "
+            f"{agree}/{total}" + (" (at least 90 % required)" if gate else " (reported)"))
+        if gate and agree < 0.9 * total:
+            raise AssertionError(f"transfer ({label}): {agree} of {total} codes agree")
+    out["counts"] = counted
+    return out
+
+
+def window_phase(cv, device, scfg, wrappers, n: int = 8):
+    """Window mode (`incremental=False`) under tpu_optimized: n chunks after
+    the delay, one slow-step and one fast-loop launch a frame (the offline
+    tokenizer and vocoder run plain)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+
+    sess, rng, _, _, _ = build_session(C.tpu_optimized(C.PipelineConfig()), device, scfg,
+                                       C.SamplingConfig(), torch.bfloat16, torch.bfloat16,
+                                       seed=65, converter=cv, incremental=False)
+    src = (rng.standard_normal((scfg.delay + 1 + n) * SPF) * 0.1).astype(np.float32)
+    for i in range(scfg.delay + 1):
+        sess.process_chunk(src[i * SPF : (i + 1) * SPF])
+    f0 = sess.frames_decoded
+    zero(wrappers)
+    times = []
+    for i in range(scfg.delay + 1, scfg.delay + 1 + n):
+        t0 = time.perf_counter()
+        wav = sess.process_chunk(src[i * SPF : (i + 1) * SPF])
+        times.append(1e3 * (time.perf_counter() - t0))
+        if wav.shape != (SPF,) or not np.all(np.isfinite(wav)) or not np.any(wav != 0):
+            raise AssertionError(f"window mode: chunk {i} {wav.shape}, finite or silent")
+    counts = read_counts(wrappers)
+    frames = sess.frames_decoded - f0
+    if counts != counts_of(slow=frames, fast=frames) or frames != n:
+        raise AssertionError(f"window mode: launch counts {counts}, {frames} frames")
+    log(f"[6] window mode (incremental=False), tpu_optimized, {n} chunks: launches {counts}; "
+        f"chunk ms p50 {np.percentile(times, 50):.3f} p90 {np.percentile(times, 90):.3f}")
+    return {"counts": counts, "chunk_ms": pct(times)}
+
+
+def batch_server_phase(cv, device, wrappers, B: int = 4, frames: int = 86,
+                       ref_s: float = 10.0):
+    """`BatchServer.convert` of B sources of `frames` frames (4 s) in one
+    bucket under per_head_decode, greedy, against one `ref_s` reference: at
+    the bf16 serving point timed, 12 decode-attention launches a frame
+    after the first and no other kernel; then with the LM in float32 the
+    codes of every row against B single `VoiceConverter.infer` calls (the
+    codes of the frames before the source's last `delay`, which infer's
+    padded tokens do not reach), at least 90 % equal."""
+    import dataclasses
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.models import arvc
+    from streamvoiceanon_tpu_torch.parallel.serving import BatchServer
+    from streamvoiceanon_tpu_torch.runtime.pipeline import VoiceConverter
+
+    greedy = C.SamplingConfig(greedy=True)
+    delay = 2
+    conv = dataclasses.replace(cv, cfg=C.per_head_decode(C.PipelineConfig()))
+    vc = VoiceConverter(conv)
+    ref = synthetic_voice(ref_s, 150.0, 51)
+    srcs = np.stack([synthetic_voice(frames * SPF / 44100.0, 120.0 + 30 * i, 70 + i)[
+        : frames * SPF] for i in range(B)])
+    style, timbre = vc.speaker_embeddings([ref], 1.0)
+    tokens, codes = vc.content_tokens(ref[None]), vc.audio_codes(ref[None])
+    Tr = tokens.shape[1] // 8 * 8
+    rows = lambda t: t.repeat_interleave(B, 0).cpu().numpy()
+    prompt = (rows(tokens[:, :Tr]), rows(codes[:, :, :Tr]), rows(style), rows(timbre))
+    zero(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = BatchServer(conv).convert(srcs, *prompt, sampling=greedy, delay=delay)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    want = counts_of(attn=conv.cfg.arvc.decoder.n_layer * (frames - 1))
+    if counts != want:
+        raise AssertionError(f"BatchServer: launch counts {counts}, expected {want}")
+    if wav.shape != (B, frames * SPF) or not np.all(np.isfinite(wav)):
+        raise AssertionError(f"BatchServer: wav {wav.shape}")
+    audio_s = B * frames * SPF / 44100.0
+    recorded, orig = [], arvc.generate
+
+    def generate(*a, **kw):
+        recorded.append(orig(*a, **kw))
+        return recorded[-1]
+
+    conv32 = dataclasses.replace(conv, arvc_params=P.cast_tree(conv.arvc_params, torch.float32))
+    arvc.generate = generate
+    try:
+        BatchServer(conv32).convert(srcs, *prompt, sampling=greedy, delay=delay)
+        for i in range(B):
+            VoiceConverter(conv32).infer(srcs[i], [ref], delay=delay, sampling=greedy)
+    finally:
+        arvc.generate = orig
+    keep = frames - delay
+    batched = recorded[0][:, :, :keep]
+    singles = torch.cat([c[:, :, :keep] for c in recorded[1:]])
+    agree, total = int((batched == singles).sum()), batched.numel()
+    out = {"s": s, "rtf": s / audio_s, "counts": counts, "agree": (agree, total)}
+    log(f"[6] BatchServer per_head_decode, {B} sources of {frames} frames in one bucket, "
+        f"greedy, bf16 LM: {1e3 * s:.1f} ms for {audio_s:.2f} s of audio, real-time factor "
+        f"{out['rtf']:.4f}; launches {counts}; float32 LM: codes equal to {B} single "
+        f"VoiceConverter.infer calls {agree}/{total} (at least 90 % required)")
+    if agree < 0.9 * total:
+        raise AssertionError(f"BatchServer: {agree} of {total} codes agree with infer")
+    return out
+
+
+def cli_phase():
+    """`cli.main(["convert", ...])` in this process on synthetic wavs (its own
+    seeded random weights, tpu_optimized on the card): the written wav's
+    length must be the source's whole frames."""
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from streamvoiceanon_tpu_torch import cli
+    from streamvoiceanon_tpu_torch.audio.io import write_wav
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as d:
+        src, ref, out = (str(Path(d) / f) for f in ("src.wav", "ref.wav", "out.wav"))
+        wav = synthetic_voice(2.0, 200.0, 81)
+        write_wav(src, wav, 44100)
+        write_wav(ref, synthetic_voice(3.0, 150.0, 82), 44100)
+        t0 = time.perf_counter()
+        cli.main(["convert", "--src", src, "--ref", ref, "--out", out])
+        s = time.perf_counter() - t0
+        sr, data = wavfile.read(out)
+    if sr != 44100 or len(data) != len(wav) // SPF * SPF:
+        raise AssertionError(f"cli convert: {len(data)} samples at {sr} Hz, expected "
+                             f"{len(wav) // SPF * SPF}")
+    log(f"[6] cli convert, 2 s source, 3 s reference (the CLI's own random weights): "
+        f"{s:.1f} s with building the converter; {len(data)} samples written")
+    return {"s": s}
+
+
+def serving(cv, spk_cv, device, scfg, wrappers):
+    """Phase 6: the serving surfaces on phase 3's weights and cut geometry.
+    Returns the launches it counted, by kernel."""
+    t0 = time.time()
+    rt = realtime_phase(cv, device, scfg, wrappers)
+    ms = multistream_phase(cv, device, scfg, wrappers)
+    tr = transfer_phase(cv, device, scfg, wrappers)
+    wn = window_phase(cv, device, scfg, wrappers)
+    bs = batch_server_phase(spk_cv, device, wrappers)
+    cli_phase()
+    runs = (rt["counts"], rt["all_five_counts"], ms["counts"], tr["counts"], wn["counts"],
+            bs["counts"])
+    log(f"[6] done in {time.time() - t0:.1f} s")
+    return {k: sum(c[k] for c in runs) for k in wrappers}
+
+
 def fmt_split(split) -> str:
     return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
@@ -2315,7 +2818,11 @@ def main() -> int:
         f"{bst['logit_diff']:.4g}; flips: {flips}")
 
     # ---- phase 5: the prompt side on phase 3's weights
-    prompt_side(cv, device, scfg, wrappers)
+    ps = prompt_side(cv, device, scfg, wrappers)
+
+    # ---- phase 6: serving on phase 3's weights
+    for key, n in serving(cv, ps["converter"], device, scfg, wrappers).items():
+        launches[key] += n
 
     # ---- phase 4
     kernels = []

@@ -8,7 +8,8 @@ configuration describes both packages.  `tpu_optimized` is the program
 set of the main path; `fast_slow_config` keeps the tokenizer ring and the
 HiFiGAN head on their plain paths; `all_five` adds the ConvNeXt encoder
 kernel and `per_head_decode` swaps the slow-step kernel for the per-head
-decode-attention kernel.
+decode-attention kernel.  `PRESETS` are the live app's named operating
+points.
 """
 
 from __future__ import annotations
@@ -409,6 +410,21 @@ class PipelineConfig:
     @property
     def samples_per_frame(self) -> int:
         return self.vocoder.samples_per_frame  # 2048
+
+
+# Named operating presets (cf. reference configs/presets.json:1-26).
+PRESETS = {
+    "max_privacy": StreamConfig(alpha=0.0, delay=2),
+    "balanced": StreamConfig(alpha=0.5, delay=2),
+    "max_quality": StreamConfig(alpha=1.0, delay=4),
+    "low_latency": StreamConfig(alpha=0.7, delay=1),
+}
+
+
+def preset(name: str) -> StreamConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    return PRESETS[name]
 
 
 def replace(cfg, **kwargs):

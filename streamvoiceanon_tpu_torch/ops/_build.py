@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's native code (compiler -> shared library -> ctypes).
 
 Each `csrc/<name>.cu` is compiled for sm_90a into its own shared library
 with a plain C interface, named by a hash of the sources so that a changed
-source rebuilds.  The build directory, `streamvoiceanon_tpu_torch/_build/`,
-is listed in `.gitignore`.  `build_all` starts one nvcc per source, all
-together.  Nothing here runs at import time.
+source rebuilds.  `csrc/<name>.cpp` (the audio transport's SPSC ring) is
+built the same way with the host compiler (`load_host`).  The build
+directory, `streamvoiceanon_tpu_torch/_build/`, is listed in `.gitignore`.
+`build_all` starts one nvcc per source, all together.  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_uint64
+_FP = ctypes.POINTER(ctypes.c_float)
 
 # C signatures of the entry points, by source
 SIGNATURES = {
@@ -44,6 +48,23 @@ SIGNATURES = {
 EXTRA_ENTRY_POINTS = {
     "svd_slow_attention": ("slow_decode", [_I, _I] + [_P] * 4 + [_I] + [_P] * 5 + [_I] * 4
                            + [_P]),
+}
+
+# host-compiled sources: flags, and (return type, argument types) by entry point
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+HOST_SIGNATURES = {
+    "ringbuffer": {
+        "svan_ring_create": (_P, [_U64]),
+        "svan_ring_destroy": (None, [_P]),
+        "svan_ring_capacity": (_U64, [_P]),
+        "svan_ring_available": (_U64, [_P]),
+        "svan_ring_space": (_U64, [_P]),
+        "svan_ring_write": (_U64, [_P, _FP, _U64]),
+        "svan_ring_read": (_U64, [_P, _FP, _U64]),
+        "svan_ring_peek": (_U64, [_P, _FP, _U64]),
+        "svan_ring_overruns": (_U64, [_P]),
+        "svan_ring_underruns": (_U64, [_P]),
+    },
 }
 
 _lock = threading.Lock()
@@ -116,3 +137,36 @@ def load(name: str):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn
+
+
+def host_library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The library of `csrc/<name>.cpp`, built with the host compiler ($CXX,
+    else g++) on first use, its entry points typed from HOST_SIGNATURES.
+    Raises if the build fails: there is no fallback."""
+    key = f"host:{name}"
+    with _lock:
+        if key not in _libs:
+            path = host_library_path(name)
+            if not path.exists():
+                cxx = shutil.which(os.environ.get("CXX", "g++"))
+                if cxx is None:
+                    raise RuntimeError(f"no host C++ compiler to build csrc/{name}.cpp")
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                r = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                                   capture_output=True, text=True)
+                if r.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed for csrc/{name}.cpp:\n{r.stdout}{r.stderr}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
+            for fn_name, (restype, argtypes) in HOST_SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _libs[key] = lib
+        return _libs[key]

@@ -9,6 +9,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -29,10 +30,22 @@ def lfq_encode(params: Dict, x: torch.Tensor, codebook_bits: int) -> torch.Tenso
     """x (B, T, dim) -> int32 indices (B, T): bit d (MSB first) is 1 iff
     projection dim d is positive."""
     h = _linear(params["project_in"], x).float()
-    mask = torch.from_numpy(
-        np.power(2, np.arange(codebook_bits - 1, -1, -1)).astype(np.int32)
-    ).to(x.device)
+    mask = _on(x.device, "bits", codebook_bits)
     return torch.sum((h > 0).to(torch.int32) * mask, dim=-1, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _on(device: torch.device, kind: str, *args) -> torch.Tensor:
+    """A constant of the quantizers on `device`, copied there once: a copy
+    from pageable host memory would make the stream's chunk step wait for
+    the device."""
+    if kind == "bits":  # LFQ bit weights, MSB first
+        a = np.power(2, np.arange(args[0] - 1, -1, -1)).astype(np.int32)
+    elif kind == "scale":  # residual FSQ layer i's scale
+        a = _rfsq_scales(args[0], args[1])[args[2]]
+    else:  # "lv", "basis", "half_width" of FSQ levels
+        a = dict(zip(("lv", "basis", "half_width"), _fsq_consts(args[0])))[kind]
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _fsq_consts(levels: Sequence[int]):
@@ -65,13 +78,11 @@ def fsq_codes_to_indices(codes: torch.Tensor, levels: Sequence[int]) -> torch.Te
 
 
 def fsq_indices_to_codes(indices: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
-    lv, basis, half_width = _fsq_consts(levels)
-    dev = indices.device
+    dev, lv = indices.device, tuple(levels)
     level_idx = torch.remainder(
-        torch.div(indices.long()[..., None], torch.from_numpy(basis).to(dev),
-                  rounding_mode="floor"),
-        torch.from_numpy(lv).to(dev))
-    hw = torch.from_numpy(half_width.astype(np.float32)).to(dev)
+        torch.div(indices.long()[..., None], _on(dev, "basis", lv), rounding_mode="floor"),
+        _on(dev, "lv", lv))
+    hw = _on(dev, "half_width", lv).float()
     return (level_idx.float() - hw) / hw
 
 
@@ -108,11 +119,10 @@ def residual_fsq_encode(params: Dict, x: torch.Tensor, levels: Sequence[int],
 def residual_fsq_decode(params: Dict, indices: torch.Tensor, levels: Sequence[int],
                         num_quantizers: int) -> torch.Tensor:
     """indices (B, T, Q) -> (B, T, dim)."""
-    scales = _rfsq_scales(levels, num_quantizers)
     total = 0.0
     for i in range(num_quantizers):
         codes = fsq_indices_to_codes(indices[..., i], levels)
-        total = total + codes * torch.from_numpy(scales[i]).to(codes.device)
+        total = total + codes * _on(codes.device, "scale", tuple(levels), num_quantizers, i)
     return _linear(params["project_out"], total) if "project_out" in params else total
 
 

@@ -355,3 +355,46 @@ def test_main_path_launches_each_kernel_once_per_frame(program):
     assert len(times) == 8 and np.isfinite(times).all()
     assert sess.frames_decoded == 6 and sess.tokens_seen == 8
     assert {k: w.launches for k, w in wrappers.items()} == expect(6, 8)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card (chip_smoke.py phase 6, shortened)
+# ---------------------------------------------------------------------------
+
+
+def _wrappers():
+    from streamvoiceanon_tpu_torch.ops import (attention, convnext_enc, fast_decode, hifigan,
+                                               slow_decode, wt_stream)
+
+    return {"slow": slow_decode.slow_decode_step, "fast": fast_decode.fast_decode,
+            "ring": wt_stream.wt_stream_step, "head": hifigan.head_stream_step,
+            "enc": convnext_enc.encoder_front_step, "attn": attention.decode_attention}
+
+
+@pytest.fixture(scope="module")
+def served():
+    """Full-width random weights under tpu_optimized (LM bf16), and the cut
+    stream geometry of chip_smoke.py phase 3."""
+    _need_card()
+    scfg = C.StreamConfig(max_prompt_frames=32, max_seq_frames=64, buffer_frames=8, delay=2)
+    *_, cv = chip_smoke.build_session(C.tpu_optimized(C.PipelineConfig()), "cuda", scfg,
+                                      C.SamplingConfig(), torch.bfloat16, torch.bfloat16)
+    return cv, scfg
+
+
+@pytest.mark.gpu
+def test_realtime_engine_on_the_card(served):
+    """The engine's launches and its output against the restored session
+    driven synchronously; one chunk under set_sync_debug_mode("error")."""
+    cv, scfg = served
+    out = chip_smoke.realtime_phase(cv, "cuda", scfg, _wrappers(), n=12)
+    assert out["err"] <= 1e-5 and out["counts"]["slow"] == 12
+
+
+@pytest.mark.gpu
+def test_fanout_engine_on_the_card(served):
+    """fanout(2) under per_head_decode in a MultiStreamEngine: 12 attention
+    launches a frame, each stream equal to the restored session."""
+    cv, scfg = served
+    out = chip_smoke.multistream_phase(cv, "cuda", scfg, _wrappers(), B=2, n=8)
+    assert out["counts"]["attn"] == 12 * out["ticks"] and out["counts"]["slow"] == 0

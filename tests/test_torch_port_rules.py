@@ -183,6 +183,24 @@ def test_ctypes_signature_matches_cuda_entry_point(name):
     assert [t.__name__ for t in argtypes] == want
 
 
+_HOST_CTYPE = {"void*": "c_void_p", "uint64_t": "c_ulong", "float*": "LP_c_float",
+               "void": None}
+
+
+@pytest.mark.parametrize("fn", sorted(_build.HOST_SIGNATURES["ringbuffer"]))
+def test_ctypes_signature_matches_ring_entry_point(fn):
+    """The SPSC ring's C entry points (csrc/ringbuffer.cpp, built by the
+    host compiler) against the ctypes types `_build.load_host` gives them."""
+    src = (PORT / "csrc" / "ringbuffer.cpp").read_text()
+    m = re.search(r"^([\w\*]+)\s+" + fn + r"\((.*?)\)\s*\{", src, re.S | re.M)
+    assert m, f"{fn} not found in csrc/ringbuffer.cpp"
+    kind = lambda decl: decl.replace("const ", "").rsplit(" ", 1)[0].replace(" ", "")
+    restype, argtypes = _build.HOST_SIGNATURES["ringbuffer"][fn]
+    assert (None if restype is None else restype.__name__) == _HOST_CTYPE[kind(m.group(1) + " x")]
+    params = [" ".join(p.split()) for p in m.group(2).split(",")]
+    assert [t.__name__ for t in argtypes] == [_HOST_CTYPE[kind(p)] for p in params]
+
+
 def test_build_goes_to_an_ignored_directory():
     lib = _build.library_path("slow_decode")
     assert lib.parent == PORT / "_build" and lib.suffix == ".so"
