@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --breakdown          # phase 2's breakdowns alone
     python3 chip_smoke.py --session per_head_decode --chunks 40
+    python3 chip_smoke.py --training           # phase 7 alone
 
 Phases, each reported on its own lines:
 
@@ -133,9 +134,23 @@ Phases, each reported on its own lines:
    float32 at least 90 % of the codes equal to four single
    `VoiceConverter.infer` calls).  `cli.main(["convert", ...])` on
    synthetic wavs: the written wav's length;
+7. training (`training_phase`): the ARVC trainer at full width
+   (`PipelineConfig()`'s LM in float32, about 145 M trainable parameters,
+   frozen tokenizer, vocoder, CAM++ and speaker encoder from phase 3's and
+   phase 5's seeds) on synthetic batches of 4 sources of 86 to 215 frames:
+   the first step's two losses and gradient norm against a float64
+   `forward_train` on the card within 1e-4 relative; six steps with finite
+   losses, steps 2-6 timed (`_features` and `_step` apart, CUDA events),
+   frames a second, `max_memory_allocated`; 30 steps of
+   `muon_adamw(lr=3e-3)` on one batch of features must end below half the
+   first loss; a checkpoint into a fresh trainer bit-equal, `resume_latest`
+   the highest step; a greedy `arvc.generate` on the trained weights under
+   tpu_optimized (one slow-step launch a frame after the first, one
+   fast-loop launch a frame) whose codes agree with the plain flags' at
+   least 90 %;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
-   session that runs it, plus phase 6's counted runs), the card line, and
-   as the last line {"ok": true, "device": {...}}.
+   session that runs it, plus phase 6's and phase 7's counted runs), the
+   card line, and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is nonzero and no result line is
 printed.  Without a CUDA card, or without the package beside this file, it
@@ -2607,6 +2622,318 @@ def serving(cv, spk_cv, device, scfg, wrappers):
     return {k: sum(c[k] for c in runs) for k in wrappers}
 
 
+TRAIN_BATCH = 4
+TRAIN_FRAMES = (86, 216)  # sources of 86 to 215 frames: 4 to 10 s
+TRAIN_REL = 1e-4  # float32 step against the float64 forward_train
+OVERFIT_STEPS = 30
+F32_NORM_MAX = 1.8446744e19  # sqrt of float32's largest value: a larger norm's square overflows
+
+
+def train_flops(d, shape, delay: int) -> int:
+    """Operations of one `forward_train` (multiply-adds x 2) on content of
+    `shape` (B, T): both stacks' products, their attention over the whole
+    (T, T) score matrices as the plain path computes them, the two
+    heads."""
+    B, T = shape
+    L = 33 + 2 * (T + delay)
+
+    def stack(n_layer, dim, H, nl, hd, inter, rows, seq):
+        per_row = 2 * dim * (H + 2 * nl) * hd + 2 * H * hd * dim + 3 * 2 * dim * inter
+        return n_layer * (rows * per_row + (rows // seq) * 2 * 2 * seq * seq * H * hd)
+
+    slow = stack(d.n_layer, d.dim, d.n_head, d.n_local_heads, d.head_dim,
+                 d.intermediate_size, B * L, L)
+    nq = d.num_codebooks
+    fast = stack(d.n_fast_layer, d.fast_dim, d.fast_n_head, d.fast_n_local_heads,
+                 d.fast_head_dim, d.fast_intermediate_size, B * T * nq, nq)
+    heads = 2 * B * T * (d.dim * d.vocab_size + nq * d.fast_dim * d.codebook_size)
+    return slow + fast + heads
+
+
+def ns_flops(leaves, steps: int = 6) -> int:
+    """Operations of `newton_schulz5` on each (..., m, n) leaf: per step
+    x x^T, A A and B x, 4 m^2 n + 2 m^3 with m <= n."""
+    total = 0
+    for g in leaves:
+        m, n = sorted(g.shape[-2:])
+        total += steps * (4 * m * m * n + 2 * m ** 3) * int(np.prod(g.shape[:-2]))
+    return total
+
+
+def lm_tree_np(cfg, seed: int = 3, input_biases: bool = True):
+    """The trained LM's numpy tree from `seed` (phase 3's), and with
+    `input_biases` the biases of `context_in` and `style_in` drawn as
+    torch.nn.Linear draws them, U(+-1/sqrt(fan_in)), in place of
+    randparams' zeros.  With zero biases the random speaker encoder's
+    all-zero timbre rows (20 to 25 of 32 at the default config, for any
+    input) enter the LM as exact-zero leading rows, which stay zero through
+    every layer: their input gradient grows by about 1/sqrt(eps) at each of
+    the 24 RMSNorms, to about 1e21 in `context_in.b`, and the float32
+    global norm overflows, in optax's sum of squares as in the port's
+    (`zero_prefix_step`)."""
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+
+    tree = rp.arvc_params_np(cfg.arvc, seed)
+    if input_biases:
+        rng = np.random.default_rng(seed + 1000)
+        for name, fan_in in (("context_in", cfg.arvc.context_dim),
+                             ("style_in", cfg.arvc.style_dim)):
+            b = tree[name]["b"]
+            tree[name]["b"] = rng.uniform(-fan_in ** -0.5, fan_in ** -0.5, b.shape).astype(
+                b.dtype)
+    return tree
+
+
+def zero_prefix_step(cfg, feats, delay: int, device):
+    """The first step with randparams' zero input biases on the same
+    features: losses within TRAIN_REL of float64; the float32 gradient norm
+    inf exactly where the float64 one is beyond float32's reach (optax's sum
+    of squares overflows there too), else within TRAIN_REL; and where it is
+    inf, the trainer's chain (clip 1000 -> MuonAdamW -> schedule) turns
+    every leaf's update into its weight decay alone, -lr * wd * p, as
+    optax's does (a clipped gradient g / inf * 1000 is 0).  Returns
+    {dtype: (codebook loss, token loss, gradient norm)}."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.models import arvc
+    from streamvoiceanon_tpu_torch.train import muon
+    from streamvoiceanon_tpu_torch.train import step as step_mod
+    from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+    tree = P.arvc_params(lm_tree_np(cfg, input_biases=False), device)
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        p = step_mod.trainable(tree, dt)
+        f = {k: v.to(dt) if v.is_floating_point() else v for k, v in feats.items()}
+        cb, tok = arvc.forward_train(p, cfg.arvc, f["content"], f["base_target"], f["target"],
+                                     f["x_lens"], f["style"], f["timbre"], delay)
+        grads = step_mod.grads_of(cb + tok, p)
+        res[dt] = (cb.item(), tok.item(), muon.global_norm(grads).item())
+        worst = 0.0
+        if dt == torch.float32 and res[dt][2] == float("inf"):
+            lr, wd = 1e-4, 0.01
+            tx = muon.chain(muon.clip_by_global_norm(1000.0), muon.muon_adamw(lr=lr),
+                            muon.scale_by_schedule(muon.exp_decay_schedule(lr)))
+            flat = flatten(tree_map(lambda t: t.detach(), p))
+            with torch.no_grad():
+                upd, _ = tx.update(grads, tx.init(flat), flat)
+                worst = max(float((u + lr * wd * flat[k]).abs().max()
+                                  / max(float((lr * wd * flat[k]).abs().max()), 1e-30))
+                            for k, u in upd.items())
+        del p, grads
+    (c32, t32, n32), (c64, t64, n64) = res[torch.float32], res[torch.float64]
+    rel = max(abs(c32 - c64) / c64, abs(t32 - t64) / t64)
+    overflow = n64 > F32_NORM_MAX
+    log(f"[7] zero input biases (randparams): step 1 losses {c32:.6f}, {t32:.6f} against "
+        f"float64 {c64:.6f}, {t64:.6f} (rel {rel:.2e}); gradient norm float64 {n64:.6e}, "
+        f"float32 {n32:.6e}" + (f" (its square overflows past {F32_NORM_MAX:.4e}, in "
+                                f"optax's sum of squares too); every update of the clipped "
+                                f"chain is the weight decay alone (largest departure "
+                                f"{worst:.2e} of it)" if overflow else ""))
+    norm_ok = n32 == float("inf") if overflow else abs(n32 - n64) <= TRAIN_REL * n64
+    if not (rel <= TRAIN_REL and norm_ok and worst <= 1e-6):
+        raise AssertionError(f"zero-prefix step: rel {rel}, norms {n64} / {n32}, update {worst}")
+    return res
+
+
+def training_phase(device, wrappers):
+    """Phase 7: the ARVC trainer at full width (`PipelineConfig()`'s LM in
+    float32, about 145 M trainable parameters; phase 3's tokenizer and
+    vocoder seeds, phase 5's CAM++ and speaker-encoder seeds, all frozen) on
+    `train/data.synthetic_dataset` batches of 4 sources of 86 to 215 frames,
+    the LM's input biases drawn as `lm_tree_np` says.
+    Checks: the first step with randparams' zero input biases as
+    `zero_prefix_step` holds it; the first step's two losses and gradient
+    norm against a float64 `forward_train` on the same features within
+    TRAIN_REL; six steps with
+    finite losses (steps 2-6 timed by CUDA events, `_features` and `_step`
+    apart); OVERFIT_STEPS steps of `muon_adamw(lr=3e-3)` on one batch of
+    features end below half the first loss (then that batch's LM step timed
+    in parts beside its operations' bound); `save_checkpoint` -> a fresh
+    trainer -> `load_checkpoint` gives bit-equal parameters and
+    `resume_latest` the highest step; a greedy `arvc.generate` on the trained
+    weights under tpu_optimized launches the slow step once a frame after
+    the first and the fast loop once a frame, and its codes agree with the
+    same call under `PipelineConfig()`'s plain flags at least 90 %.
+    Returns the measurements and the launches it counted."""
+    import os
+    import tempfile
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.models import arvc
+    from streamvoiceanon_tpu_torch.train import data, muon
+    from streamvoiceanon_tpu_torch.train import step as step_mod
+    from streamvoiceanon_tpu_torch.train.arvc_trainer import ARVCTrainer, TrainerConfig
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+    from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+    t_phase = time.time()
+    cfg = C.PipelineConfig()
+    trees = {
+        "arvc_params": P.arvc_params(lm_tree_np(cfg), device),
+        "tokenizer_params": P.tokenizer_params(rp.tokenizer_params_np(cfg.tokenizer, 1), device),
+        "vocoder_params": P.vocoder_params(rp.vocoder_params_np(cfg.vocoder, 2), device),
+        "campplus_params": P.campplus_params(rp.campplus_params_np(cfg.campplus, 5), device),
+        "speaker_params": P.speaker_params(rp.speaker_encoder_params_np(cfg.speaker, 6),
+                                           device)}
+    n_params = sum(t.numel() for t in flatten(trees["arvc_params"]).values())
+    tmp = tempfile.TemporaryDirectory()
+    log_dir = os.path.join(tmp.name, "run")
+    trainer = ARVCTrainer(cfg, TrainerConfig(log_dir=log_dir), **trees, device=device)
+    dcfg = data.DataConfig(batch_size=TRAIN_BATCH)
+    batches = data.batches(data.synthetic_dataset(dcfg, seed=71, frames=TRAIN_FRAMES,
+                                                  with_text=False), dcfg)
+    log(f"[7] training set-up {time.time() - t_phase:.1f} s: {n_params} trainable "
+        f"parameters in float32 (the input projections' biases drawn as torch.nn.Linear "
+        f"draws them), batches of {TRAIN_BATCH} sources of {TRAIN_FRAMES[0]} to "
+        f"{TRAIN_FRAMES[1] - 1} frames, delays drawn from {cfg.arvc.decoder.delay}")
+
+    # step 1 against float64, first with randparams' zero input biases
+    batch = next(batches)
+    feats1 = trainer._features(batch["waves"], batch["frame_lens"])
+    delay = trainer.draw_delay()
+    zero_rows = int((feats1["timbre"].abs().amax(-1) == 0).sum())
+    log(f"[7] batch 1: timbre latents with every value zero: {zero_rows} of "
+        f"{feats1['timbre'].shape[0] * feats1['timbre'].shape[1]} rows")
+    zero_prefix_step(cfg, feats1, delay, device)
+    p64 = tree_map(lambda t: t.detach().double().requires_grad_(True), trainer.state.params)
+    f64 = {k: v.double() if v.is_floating_point() else v for k, v in feats1.items()}
+    cb, tok = arvc.forward_train(p64, cfg.arvc, f64["content"], f64["base_target"],
+                                 f64["target"], f64["x_lens"], f64["style"], f64["timbre"],
+                                 delay)
+    want = {"codebook_loss": cb.item(), "token_loss": tok.item(),
+            "grad_norm": muon.global_norm(step_mod.grads_of(cb + tok, p64)).item()}
+    del p64, f64, cb, tok
+    aux = {k: float(v) for k, v in trainer._step(feats1, delay).items()}
+    errs = {k: abs(aux[k] - v) / abs(v) for k, v in want.items()}
+    log(f"[7] step 1 (delay {delay}, {int(batch['frame_lens'].sum())} frames) against a "
+        "float64 forward_train on the card: " + ", ".join(
+            f"{k} {aux[k]:.6f} / {want[k]:.6f} (rel {errs[k]:.2e})" for k in want)
+        + f" (bound {TRAIN_REL})")
+    if not max(errs.values()) <= TRAIN_REL:
+        raise AssertionError(f"training step 1 against float64: {errs}")
+    losses = [aux["loss"]]
+
+    # steps 2-6, timed
+    torch.cuda.reset_peak_memory_stats(device)
+    feat_ms, step_ms, fps = [], [], []
+    for i in range(2, 7):
+        batch = next(batches)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        feats = trainer._features(batch["waves"], batch["frame_lens"])
+        ev[1].record()
+        aux = trainer._step(feats, trainer.draw_delay())
+        ev[2].record()
+        torch.cuda.synchronize()
+        feat_ms.append(ev[0].elapsed_time(ev[1]))
+        step_ms.append(ev[1].elapsed_time(ev[2]))
+        fps.append(int(batch["frame_lens"].sum()) / (1e-3 * (feat_ms[-1] + step_ms[-1])))
+        losses.append(float(aux["loss"]))
+    peak = torch.cuda.max_memory_allocated(device)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"training losses not finite: {losses}")
+    out = {"feat_ms": float(np.median(feat_ms)), "step_ms": float(np.median(step_ms)),
+           "fps": float(np.median(fps)), "peak_bytes": int(peak), "losses": losses}
+    log(f"[7] six steps, losses {', '.join(f'{x:.4f}' for x in losses)}; steps 2-6 p50: "
+        f"_features {out['feat_ms']:.3f} ms (runs {', '.join(f'{x:.3f}' for x in feat_ms)}), "
+        f"_step {out['step_ms']:.3f} ms (runs {', '.join(f'{x:.3f}' for x in step_ms)}), "
+        f"{out['fps']:.1f} frames a second; max_memory_allocated over steps 2-6 "
+        f"{peak / 2**30:.3f} GiB")
+
+    # checkpoints: bit-equal round trip, resume_latest picks the highest step
+    snap = {k: v.detach().clone() for k, v in flatten(trainer.state.params).items()}
+    t0 = time.time()
+    path6 = trainer.save_checkpoint(keep_last=0)
+    trainer.train_step(next(batches))
+    path7 = trainer.save_checkpoint(keep_last=2)
+    fresh = ARVCTrainer(cfg, TrainerConfig(log_dir=log_dir), **trees, device=device)
+    fresh.load_checkpoint(path6)
+    same6 = all(torch.equal(snap[k], v) for k, v in flatten(fresh.state.params).items())
+    latest = fresh.resume_latest()
+    same7 = all(torch.equal(flatten(trainer.state.params)[k], v)
+                for k, v in flatten(fresh.state.params).items())
+    log(f"[7] checkpoints: {os.path.basename(path6)} into a fresh trainer bit-equal "
+        f"{same6}; resume_latest -> {os.path.basename(latest)} (step {fresh.state.step}) "
+        f"bit-equal {same7}; {time.time() - t0:.1f} s")
+    if not (same6 and same7 and latest == path7 and fresh.state.step == 7):
+        raise AssertionError("training checkpoints: round trip or resume_latest failed")
+    del fresh, snap
+
+    # overfitting one batch of features
+    tx = muon.chain(muon.clip_by_global_norm(1000.0), muon.muon_adamw(lr=3e-3))
+    st = step_mod.init_state(step_mod.trainable(trees["arvc_params"]), tx)
+    curve = []
+    for _ in range(OVERFIT_STEPS):
+        st, a = step_mod.train_step(st, feats1, cfg.arvc, tx, 2)
+        curve.append(a["loss"])
+    curve = [float(x) for x in curve]
+    out["overfit"] = (curve[0], curve[-1])
+    log(f"[7] overfitting one batch, {OVERFIT_STEPS} steps of muon_adamw(lr=3e-3), delay 2: "
+        f"loss {curve[0]:.4f} -> {curve[-1]:.4f} (must end below half); every fifth "
+        + ", ".join(f"{x:.3f}" for x in curve[::5]))
+    if not (np.all(np.isfinite(curve)) and curve[-1] < 0.5 * curve[0]):
+        raise AssertionError(f"overfitting one batch: {curve[0]} -> {curve[-1]}")
+    # the LM step on this batch split: forward and backward, the optimizer's
+    # update (not applied), Newton-Schulz alone; each beside its operations
+    # over the float32 peak
+    fwd_bwd = lambda: step_mod.grads_of(step_mod.loss_fn(st.params, cfg.arvc, feats1, 2)[0],
+                                        st.params)
+    grads = fwd_bwd()
+    flat = flatten(st.params)
+    muon_leaves = [g for k, g in grads.items() if muon.labels(flat)[k] == "muon"]
+    split = {"forward and backward": cuda_ms(fwd_bwd, 5, 1)}
+    with torch.no_grad():
+        split["optimizer update"] = cuda_ms(lambda: tx.update(grads, st.opt_state, flat), 5, 1)
+        split["Newton-Schulz alone"] = cuda_ms(
+            lambda: [muon.newton_schulz5(g) for g in muon_leaves], 5, 1)
+    fwd, ns = train_flops(cfg.arvc.decoder, feats1["content"].shape, 2), ns_flops(muon_leaves)
+    bounds = {"forward and backward": 4 * fwd, "optimizer update": ns, "Newton-Schulz alone": ns}
+    out["split"] = split
+    log("[7] LM step on that batch (CUDA events, 5 runs each): " + "; ".join(
+        f"{k} {v:.3f} ms (bound {1e3 * bounds[k] / FP32_FLOPS:.3f} ms by operations, "
+        f"{bounds[k]:.4g} flop)" for k, v in split.items())
+        + f"; forward {fwd:.4g} flop, taken as a quarter of forward, recompute and backward")
+    del st, grads, muon_leaves
+
+    # the trained weights through the decode kernels
+    n = int(feats1["x_lens"][0])
+    params = tree_map(lambda t: t.detach(), trainer.state.params)
+    args = (feats1["content"][:1, :16], feats1["target"][:1, :, :16], feats1["content"][:1, :n],
+            feats1["style"][:1], feats1["timbre"][:1], C.SamplingConfig(greedy=True), 2)
+    zero(wrappers)
+    codes, gen_ms = {}, {}
+    for name, acfg in (("tpu_optimized", C.tpu_optimized(cfg).arvc), ("plain", cfg.arvc)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            codes[name] = arvc.generate(params, acfg, *args)
+        torch.cuda.synchronize()
+        gen_ms[name] = 1e3 * (time.perf_counter() - t0)
+        if name == "tpu_optimized":
+            counts = read_counts(wrappers)
+    if counts != counts_of(slow=n - 1, fast=n) or read_counts(wrappers) != counts:
+        raise AssertionError(f"generate on the trained weights: launches {counts}, then "
+                             f"{read_counts(wrappers)}; expected "
+                             f"{counts_of(slow=n - 1, fast=n)} ({n} frames)")
+    agree = int((codes["tpu_optimized"] == codes["plain"]).sum())
+    total = codes["plain"].numel()
+    out.update(counts=counts, agree=(agree, total), gen_ms=gen_ms)
+    log(f"[7] greedy generate on the trained float32 weights, {n} frames, 16-frame prompt: "
+        f"tpu_optimized {gen_ms['tpu_optimized']:.1f} ms, launches {counts}; plain flags "
+        f"{gen_ms['plain']:.1f} ms; codes agree {agree}/{total} ({agree / total:.4f}, at "
+        "least 0.9 required)")
+    if agree < 0.9 * total:
+        raise AssertionError(f"generate on the trained weights: {agree} of {total} codes agree")
+    tmp.cleanup()
+    log(f"[7] done in {time.time() - t_phase:.1f} s")
+    return out
+
+
 def fmt_split(split) -> str:
     return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
@@ -2824,6 +3151,10 @@ def main() -> int:
     for key, n in serving(cv, ps["converter"], device, scfg, wrappers).items():
         launches[key] += n
 
+    # ---- phase 7: training
+    for key, n in training_phase(device, wrappers)["counts"].items():
+        launches[key] += n
+
     # ---- phase 4
     kernels = []
     for key, name, src, rep in (
@@ -2873,6 +3204,41 @@ def breakdown_main() -> int:
     return 0
 
 
+def training_main() -> int:
+    """`python3 chip_smoke.py --training`: phase 7 alone, after building the
+    kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from streamvoiceanon_tpu_torch import resolve_device
+    from streamvoiceanon_tpu_torch.ops import _build
+    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
+    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
+    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
+    from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
+    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
+
+    device = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.time()
+    _build.build_all()
+    log(f"[1] build: {time.time() - t0:.1f} s")
+    wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
+                "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
+    out = training_phase(device, wrappers)
+    log(card)
+    print(json.dumps({"training": {k: v for k, v in out.items() if k != "gen_ms"}}),
+          flush=True)
+    return 0
+
+
 def session_main(name: str, chunks: int) -> int:
     """`python3 chip_smoke.py --session NAME [--chunks N]`: one phase-3
     session alone (NAME a program set of `config`, e.g. per_head_decode),
@@ -2905,6 +3271,8 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     if argv == ["--breakdown"]:
         sys.exit(breakdown_main())
+    if argv == ["--training"]:
+        sys.exit(training_main())
     if argv[:1] == ["--session"]:
         sys.exit(session_main(argv[1], int(argv[3]) if argv[2:3] == ["--chunks"] else 40))
     sys.exit(main())

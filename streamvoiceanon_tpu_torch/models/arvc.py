@@ -1,6 +1,6 @@
 """ARVC wrapper: content-token embedding and speaker conditioning around the
-dual-AR LM, with the offline `generate` and the streaming prefill and
-decode programs, as `streamvoiceanon_tpu.models.arvc`.
+dual-AR LM, with the training forward, the offline `generate` and the
+streaming prefill and decode programs, as `streamvoiceanon_tpu.models.arvc`.
 
 The interleaved stream layout:
 
@@ -37,6 +37,20 @@ def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(B, T, D), (B, T, D) -> (B, 2T, D) as a_0 b_0 a_1 b_1 ..."""
     B, T, D = a.shape
     return torch.stack([a, b], dim=2).reshape(B, 2 * T, D)
+
+
+def forward_train(params: Dict, cfg: ARVCConfig, content_tokens: torch.Tensor,
+                  base_target: torch.Tensor, target: torch.Tensor, x_lens: torch.Tensor,
+                  style_vec: torch.Tensor, timbre: torch.Tensor, delay: int,
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training losses (codebook CE, semantic CE) of content tokens (B, T),
+    semantic targets (B, T), codebook targets (B, nq, T), valid frames x_lens
+    (B,) and the speaker condition; `delay` is drawn by the trainer per
+    batch.  See `dual_ar.forward_train`."""
+    return dual_ar.forward_train(
+        params["model"], cfg.decoder, embed_content(params, content_tokens),
+        spk_condition(params, style_vec, timbre), base_target, target, x_lens,
+        params["wait4start"], params["wait4end"], delay, remat=remat)
 
 
 class ARVCState(NamedTuple):

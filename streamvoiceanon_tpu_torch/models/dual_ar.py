@@ -1,5 +1,5 @@
-"""Dual-autoregressive token LM: prefill and the frame decode step, on
-either KV-cache layout and at any batch.
+"""Dual-autoregressive token LM: the training forward, prefill and the frame
+decode step, on either KV-cache layout and at any batch.
 
 As `streamvoiceanon_tpu.models.dual_ar`.  A slow transformer (12 x 768)
 consumes the interleaved stream [speaker prefix (33) | (content_t,
@@ -30,6 +30,10 @@ The windowed sampler's nucleus truncations add up in `DecodeState.trunc`.
 Prefill writes the cache with plain PyTorch; `convert_cache_layout` moves
 a live cache between the two layouts.
 
+`forward_train` runs both stacks without caches (`run_layers`, each layer
+recomputed in the backward pass under `remat`) in plain PyTorch, as the
+JAX package runs its training forward outside any kernel.
+
 The cache position is a host integer: the position trajectory of a
 stream is known in advance, so no device value is read back to schedule.
 `prefill` returns new caches; `decode_frame` writes its two fresh rows
@@ -44,12 +48,13 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from streamvoiceanon_tpu_torch.config import DualARConfig, SamplingConfig
 from streamvoiceanon_tpu_torch.ops.attention import decode_attention
 from streamvoiceanon_tpu_torch.ops.decode_common import freqs_table
 from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
-from streamvoiceanon_tpu_torch.ops.norm import rms_norm
+from streamvoiceanon_tpu_torch.ops.norm import compute_dtype, rms_norm
 from streamvoiceanon_tpu_torch.ops.rope import apply_rope
 from streamvoiceanon_tpu_torch.ops.sampling import sample_token
 from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
@@ -102,17 +107,19 @@ def convert_cache_layout(state: DecodeState, cfg: DualARConfig) -> DecodeState:
 
 
 def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
-                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, n_head: int,
-                n_local: int, head_dim: int, norm_eps: float,
+                k_cache: Optional[torch.Tensor], v_cache: Optional[torch.Tensor], pos: int,
+                n_head: int, n_local: int, head_dim: int, norm_eps: float,
                 kernel: bool = False) -> torch.Tensor:
     """Layer l of a stack on x (B, T, dim) at positions pos..pos+T-1:
     writes the T roped K/V rows into the layer's caches in place, flat (B,
     S, n_local*head_dim) or per head (B, n_local, S, head_dim), and attends
-    causally over rows < pos + T.  `kernel` (per-head cache, MHA) runs the
-    attention on the decode-attention kernel over the B x n_head heads of
-    the cache viewed as (B * n_head, S, head_dim), with the JAX package's
-    `use_pallas` rounding: q, k, v in the cache dtype, the output rounded
-    to it."""
+    causally over rows < pos + T.  Without caches (k_cache None, pos 0: the
+    training forward) it attends causally over the T fresh rows alone and
+    writes nothing, so autograd may save every tensor it uses.  `kernel`
+    (per-head cache, MHA) runs the attention on the decode-attention kernel
+    over the B x n_head heads of the cache viewed as (B * n_head, S,
+    head_dim), with the JAX package's `use_pallas` rounding: q, k, v in the
+    cache dtype, the output rounded to it."""
     B, T, dim = x.shape
     H, nl, hd = n_head, n_local, head_dim
     h = rms_norm(x, lp["attention_norm"]["w"][l], norm_eps)
@@ -122,30 +129,34 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
     k = apply_rope(k.reshape(B, T, nl, hd), freqs)
     v = v.reshape(B, T, nl, hd)
     P = pos + T
-    cd = k_cache.dtype
     if kernel:
         if nl != H:
             raise NotImplementedError("the decode-attention kernel takes MHA (no GQA)")
-        S = k_cache.shape[-2]
+        S, cd = k_cache.shape[-2], k_cache.dtype
         heads = lambda t: t.transpose(1, 2).reshape(B * H, T, hd).to(cd)
         out, _, _ = decode_attention(heads(q), heads(k), heads(v),
                                      k_cache.view(B * H, S, hd), v_cache.view(B * H, S, hd),
                                      pos)
         out = out.view(B, H, T, hd).transpose(1, 2).reshape(B, T, H * hd).to(x.dtype)
     else:
-        if k_cache.ndim == 3:  # flat rows
+        if k_cache is None:
+            k_all, v_all = k.transpose(1, 2), v.transpose(1, 2)
+        elif k_cache.ndim == 3:  # flat rows
+            cd = k_cache.dtype
             k_cache[:, pos:P] = k.reshape(B, T, nl * hd).to(cd)
             v_cache[:, pos:P] = v.reshape(B, T, nl * hd).to(cd)
             k_all = k_cache[:, :P].reshape(B, P, nl, hd).transpose(1, 2).to(x.dtype)
             v_all = v_cache[:, :P].reshape(B, P, nl, hd).transpose(1, 2).to(x.dtype)
         else:
+            cd = k_cache.dtype
             k_cache[:, :, pos:P] = k.transpose(1, 2).to(cd)
             v_cache[:, :, pos:P] = v.transpose(1, 2).to(cd)
             k_all, v_all = k_cache[:, :, :P].to(x.dtype), v_cache[:, :, :P].to(x.dtype)
         if nl != H:
             k_all = torch.repeat_interleave(k_all, H // nl, dim=1)
             v_all = torch.repeat_interleave(v_all, H // nl, dim=1)
-        scores = (q.transpose(1, 2).float() @ k_all.float().transpose(-1, -2)) / np.sqrt(hd)
+        acc = compute_dtype(x.dtype)
+        scores = (q.transpose(1, 2).to(acc) @ k_all.to(acc).transpose(-1, -2)) / np.sqrt(hd)
         col = torch.arange(P, device=x.device)
         mask = col[None, :] <= (pos + torch.arange(T, device=x.device))[:, None]
         w = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1).to(x.dtype)
@@ -154,6 +165,20 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
     f = rms_norm(x, lp["ffn_norm"]["w"][l], norm_eps)
     f = (F.silu(f @ lp["w1"]["w"][l]) * (f @ lp["w3"]["w"][l])) @ lp["w2"]["w"][l]
     return x + f
+
+
+def run_layers(stacked: Dict, x: torch.Tensor, freqs: torch.Tensor, n_head: int,
+               n_local: int, head_dim: int, norm_eps: float,
+               remat: bool = False) -> torch.Tensor:
+    """The cache-free layer loop of the training forward: every layer of a
+    stack on x (B, T, dim), causal over its T rows.  `remat` recomputes
+    each layer in the backward pass (`torch.utils.checkpoint`, as the JAX
+    package's `jax.checkpoint` of the scanned body), so that only the
+    layer inputs are kept, not every layer's attention matrix."""
+    for l in range(stacked["wqkv"]["w"].shape[0]):
+        args = (stacked, l, x, freqs, None, None, 0, n_head, n_local, head_dim, norm_eps)
+        x = checkpoint(_attn_block, *args, use_reentrant=False) if remat else _attn_block(*args)
+    return x
 
 
 def _slow_heads(cfg: DualARConfig) -> Tuple[int, int, int, float]:
@@ -197,6 +222,71 @@ def _token_logits(params: Dict, cfg: DualARConfig, hidden: torch.Tensor) -> torc
         return h @ params["embeddings"].T
     out = h @ params["output"]["w"]
     return out + params["output"]["b"] if "b" in params["output"] else out
+
+
+def forward_train(params: Dict, cfg: DualARConfig, condition: torch.Tensor,
+                  spk_condition: torch.Tensor, base_target: torch.Tensor,
+                  target: torch.Tensor, x_lens: torch.Tensor, wait4start: torch.Tensor,
+                  wait4end: torch.Tensor, delay: int,
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training losses (codebook CE, semantic-token CE), as the JAX
+    package's `forward_train`.
+
+    condition (B, T, dim) embedded content, spk_condition (B, S, dim),
+    base_target (B, T) semantic targets, target (B, nq, T) codebook
+    targets, x_lens (B,) valid frames.  The stream is [spk | (cond_t,
+    audio_{t-delay}) for t < T + delay]: the first `delay` audio slots are
+    wait4start rows, the cond slots past a row's length wait4end rows
+    (zeros at delay 0).  The slow stack runs causally over it with no
+    padding mask; the semantic CE reads the frame positions S + 2 delay +
+    2 t, gathered before the vocabulary projection; the fast stack is
+    teacher-forced over the nq codebooks of every frame.  Both CEs are in
+    float32 (float64 for a float64 tree) and masked by x_lens.  No dropout,
+    as in the JAX package."""
+    B, T, D = condition.shape
+    S = spk_condition.shape[1]
+    nq = cfg.num_codebooks
+    Tm = T + delay
+    dev = condition.device
+    x_lens = x_lens.to(dev).long()
+    t_idx = torch.arange(Tm, device=dev)
+    if delay > 0:
+        tail = wait4end[(t_idx[None, :] - x_lens[:, None]).clamp(0, delay - 1)]
+    else:
+        tail = torch.zeros((B, Tm, D), dtype=condition.dtype, device=dev)
+    cond_stream = torch.where((t_idx[None, :] < x_lens[:, None])[..., None],
+                              F.pad(condition, (0, 0, 0, delay)), tail)
+    audio_stream = torch.cat([wait4start[None, :delay].expand(B, -1, -1),
+                              embed_codes(params, cfg, target)], dim=1)
+    inter = torch.stack([cond_stream, audio_stream], dim=2).reshape(B, 2 * Tm, D)
+    emb_seq = torch.cat([spk_condition, inter], dim=1)
+    x = run_layers(params["layers"], emb_seq,
+                   freqs_table(emb_seq.shape[1], cfg.head_dim, cfg.rope_base, dev),
+                   *_slow_heads(cfg), remat=remat)
+
+    frame_pos = S + 2 * delay + 2 * torch.arange(T, device=dev)
+    latents = x[:, frame_pos]  # (B, T, dim)
+    valid = (torch.arange(T, device=dev)[None, :] < x_lens[:, None]).float()
+    n_valid = valid.sum()
+
+    def ce(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        logits = logits.to(compute_dtype(logits.dtype))
+        return (torch.logsumexp(logits, dim=-1)
+                - torch.gather(logits, -1, tgt.long()[..., None])[..., 0])
+
+    token_loss = (ce(_token_logits(params, cfg, latents), base_target) * valid).sum() \
+        / n_valid.clamp(min=1.0)
+
+    cb = target.transpose(1, 2).long()  # (B, T, nq)
+    fast_in = torch.cat([_project_fast(params, latents)[:, :, None],
+                         params["fast_embeddings"][cb[..., :-1]]], dim=2)
+    h = run_layers(params["fast_layers"], fast_in.reshape(B * T, nq, cfg.fast_dim),
+                   freqs_table(nq, cfg.fast_head_dim, cfg.rope_base, dev),
+                   *_fast_heads(cfg), remat=remat)
+    h = rms_norm(h, params["fast_norm"]["w"], cfg.norm_eps)
+    cb_logits = (h @ params["fast_output"]["w"]).reshape(B, T, nq, cfg.codebook_size)
+    codebook_loss = (ce(cb_logits, cb) * valid[..., None]).sum() / (n_valid * nq).clamp(min=1.0)
+    return codebook_loss, token_loss
 
 
 def slow_kernel_runs(params: Dict, cfg: DualARConfig, batch: int) -> bool:

@@ -1,0 +1,229 @@
+"""ARVC (voice-conversion LM) trainer on one device, as the JAX package's
+train/arvc_trainer.py.
+
+Per batch the frozen feature extractors give the codec targets, the
+content conditions and the speaker embeddings (`_features`); the dual-AR
+LM is trained with the codebook and semantic CEs under MuonAdamW with the
+exponential-decay schedule and gradient clipping (`_step`); metrics go to
+`metrics.jsonl` and, where it imports, tensorboard; checkpoints are
+torch-native (`runtime/checkpoints.py`'s format), one directory
+`ckpt_{step}` each.
+
+The delay of a batch is drawn uniformly from `cfg.arvc.decoder.delay` with
+a `torch.Generator` seeded from `TrainerConfig.seed` (its draws need not
+equal JAX's).  The parameters are updated in place, so the decode kernels
+that `log_audio_sample` runs read the trained values.  Sharding the LM over
+several cards (`n_model_shards > 1`) waits for the port of
+parallel/mesh.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from streamvoiceanon_tpu_torch import resolve_device
+from streamvoiceanon_tpu_torch.audio import fbank as fbank_mod
+from streamvoiceanon_tpu_torch.audio.resample import resample
+from streamvoiceanon_tpu_torch.config import PipelineConfig
+from streamvoiceanon_tpu_torch.models import (arvc, campplus, speaker_encoder, tokenizer,
+                                              vocoder)
+from streamvoiceanon_tpu_torch.runtime.checkpoints import PACKED, load_tree, save_tree
+from streamvoiceanon_tpu_torch.train import muon
+from streamvoiceanon_tpu_torch.train import step as step_mod
+from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    lr: float = 1e-4
+    gamma: float = 0.999997
+    min_lr: float = 1e-5
+    clip: float = 1000.0
+    codebook_loss_weight: float = 1.0
+    semantic_loss_weight: float = 1.0
+    log_interval: int = 10
+    save_interval: int = 4000
+    log_dir: str = "runs/arvc"
+    seed: int = 0
+    n_model_shards: int = 1
+
+
+def _ckpt_step(name: str) -> Optional[int]:
+    tail = name.split("_", 1)[1] if name.startswith("ckpt_") else ""
+    return int(tail) if tail.isdigit() else None
+
+
+class ARVCTrainer:
+    """Trains a copy of `arvc_params` (a port tree) in float32; the other
+    trees stay frozen.  Runs on `device`, the card unless given."""
+
+    def __init__(self, cfg: PipelineConfig, tcfg: TrainerConfig, arvc_params: Dict,
+                 tokenizer_params: Dict, vocoder_params: Dict,
+                 campplus_params: Optional[Dict] = None,
+                 speaker_params: Optional[Dict] = None, device: Optional[str] = None):
+        if tcfg.n_model_shards != 1:
+            raise NotImplementedError(
+                "ARVCTrainer: sharding the LM over several cards waits for the port of "
+                "parallel/mesh.py")
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+
+        def frozen(tree):
+            if tree is None:
+                return None
+            tree = {k: v for k, v in tree.items() if k not in PACKED}
+            return tree_map(lambda t: t.detach().to(self.device), tree)
+
+        self.frozen = {"tokenizer": frozen(tokenizer_params), "vocoder": frozen(vocoder_params),
+                       "campplus": frozen(campplus_params), "speaker": frozen(speaker_params)}
+        params = step_mod.trainable(tree_map(lambda t: t.to(self.device), arvc_params))
+        schedule = muon.exp_decay_schedule(tcfg.lr, tcfg.gamma, tcfg.min_lr)
+        self.optimizer = muon.chain(muon.clip_by_global_norm(tcfg.clip),
+                                    muon.muon_adamw(lr=tcfg.lr),
+                                    muon.scale_by_schedule(schedule))
+        self.state = step_mod.init_state(params, self.optimizer)
+        self.generator = torch.Generator().manual_seed(tcfg.seed)
+        self.metrics_path = os.path.join(tcfg.log_dir, "metrics.jsonl")
+        os.makedirs(tcfg.log_dir, exist_ok=True)
+        self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb = SummaryWriter(tcfg.log_dir)
+        except Exception:
+            pass
+
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _features(self, waves, frame_lens) -> Dict:
+        """Frozen feature extraction of waves (B, T) at 44.1 kHz and their
+        valid frames: content tokens (also the semantic targets), codec
+        codes, the CAM++ style vector over the mean-normalised fbank of the
+        16 kHz audio (lengths half its frames), the speaker encoder's timbre
+        latents; zeros where a tree is absent."""
+        waves = torch.as_tensor(np.asarray(waves, np.float32)
+                                if not torch.is_tensor(waves) else waves)
+        waves = waves.to(self.device, torch.float32)
+        B = waves.shape[0]
+        w16 = resample(waves, self.cfg.sample_rate, self.cfg.resample_rate)
+        content = tokenizer.encode(self.frozen["tokenizer"], self.cfg.tokenizer, waves)
+        codes = vocoder.encode(self.frozen["vocoder"], self.cfg.vocoder, waves)[0]
+        if self.frozen["campplus"] is not None:
+            feat = fbank_mod.fbank(w16)
+            feat = feat - feat.mean(dim=1, keepdim=True)
+            lens = torch.full((B,), feat.shape[1] // 2, dtype=torch.int32, device=self.device)
+            style = campplus.apply(self.frozen["campplus"], self.cfg.campplus, feat, lens)
+        else:
+            style = torch.zeros((B, self.cfg.arvc.style_dim), device=self.device)
+        if self.frozen["speaker"] is not None:
+            lens16 = torch.full((B,), w16.shape[1], dtype=torch.int32, device=self.device)
+            timbre = speaker_encoder.tokenize_wav(self.frozen["speaker"], self.cfg.speaker, w16,
+                                                  lens16)[0]
+        else:
+            timbre = torch.zeros((B, 32, self.cfg.arvc.context_dim), device=self.device)
+        return {"content": content, "base_target": content, "target": codes,
+                "x_lens": torch.as_tensor(np.asarray(frame_lens)).to(self.device, torch.int32),
+                "style": style, "timbre": timbre}
+
+    def _step(self, features: Dict, delay: int) -> Dict:
+        """One optimizer step on a feature batch at `delay`.  Returns the
+        loss, the two CEs and the raw gradients' norm as device scalars."""
+        self.state, aux = step_mod.train_step(
+            self.state, features, self.cfg.arvc, self.optimizer, delay,
+            (self.tcfg.codebook_loss_weight, self.tcfg.semantic_loss_weight))
+        return aux
+
+    def draw_delay(self) -> int:
+        delays = self.cfg.arvc.decoder.delay
+        return int(delays[int(torch.randint(len(delays), (), generator=self.generator))])
+
+    def train_step(self, batch: Dict) -> Dict:
+        """One step on a host batch with `waves` (B, T) and `frame_lens`."""
+        feats = self._features(batch["waves"], batch["frame_lens"])
+        aux = self._step(feats, self.draw_delay())
+        return {k: float(v) for k, v in aux.items()}
+
+    # ------------------------------------------------------------------
+
+    def train(self, data: Iterator[Dict], max_steps: int = 1000) -> None:
+        t0 = time.time()
+        for i, batch in enumerate(data):
+            if i >= max_steps:
+                break
+            aux = self.train_step(batch)
+            step = self.state.step
+            if step % self.tcfg.log_interval == 0:
+                rec = dict(aux, step=step, wall=time.time() - t0)
+                with open(self.metrics_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                if self._tb is not None:
+                    for k, v in aux.items():
+                        self._tb.add_scalar(f"train/{k}", v, step)
+            if step % self.tcfg.save_interval == 0:
+                self.save_checkpoint()
+
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, path: Optional[str] = None, keep_last: int = 1) -> str:
+        """The parameters under `path` (`log_dir/ckpt_{step}` unless given),
+        then only the newest `keep_last` `ckpt_{step}` directories kept."""
+        base = os.path.abspath(self.tcfg.log_dir)
+        path = path or os.path.join(base, f"ckpt_{self.state.step}")
+        os.makedirs(path, exist_ok=True)
+        save_tree(self.state.params, os.path.join(path, "arvc.pt"))
+        if keep_last:
+            old = sorted((d for d in os.listdir(base) if _ckpt_step(d) is not None),
+                         key=_ckpt_step)[:-keep_last]
+            for d in old:
+                shutil.rmtree(os.path.join(base, d), ignore_errors=True)
+        return path
+
+    def load_checkpoint(self, path: str) -> None:
+        """The parameters from `path`, copied into the trained tensors; the
+        step from the directory's name (0 if it has none).  The optimizer
+        state is kept as it is, as the JAX trainer keeps it."""
+        restored = flatten(load_tree(os.path.join(path, "arvc.pt"), self.device))
+        with torch.no_grad():
+            for k, p in flatten(self.state.params).items():
+                p.copy_(restored[k])
+        tail = path.rstrip("/").rsplit("_", 1)[-1]
+        self.state = self.state._replace(step=int(tail) if tail.isdigit() else 0)
+
+    def resume_latest(self) -> Optional[str]:
+        """Resume from the highest-step `ckpt_{step}` in log_dir."""
+        base = os.path.abspath(self.tcfg.log_dir)
+        cands = ([d for d in os.listdir(base) if _ckpt_step(d) is not None]
+                 if os.path.isdir(base) else [])
+        if not cands:
+            return None
+        path = os.path.join(base, max(cands, key=_ckpt_step))
+        self.load_checkpoint(path)
+        return path
+
+    def log_audio_sample(self, batch: Dict, step: Optional[int] = None) -> None:
+        """Reconstruction logging: `arvc.generate` of the batch's first
+        utterance (its first 16 frames as the prompt) on the trained
+        weights, vocoded, to tensorboard."""
+        if self._tb is None:
+            return
+        params = tree_map(lambda t: t.detach(), self.state.params)
+        with torch.inference_mode():
+            feats = self._features(batch["waves"][:1], batch["frame_lens"][:1])
+            codes = arvc.generate(
+                params, self.cfg.arvc, feats["content"][:, :16], feats["target"][:, :, :16],
+                feats["content"], feats["style"], feats["timbre"],
+                generator=torch.Generator(device=self.device).manual_seed(0))
+            wav = vocoder.decode(self.frozen["vocoder"], self.cfg.vocoder, codes)
+        self._tb.add_audio("train/reconstruction", wav[0, :, None].float().cpu().numpy(),
+                           step if step is not None else self.state.step,
+                           sample_rate=self.cfg.sample_rate)

@@ -1,0 +1,77 @@
+"""The ARVC training step: loss -> gradients -> optimizer update, as the JAX
+package's train/step.py, on one device.
+
+The parameters are a nested dict of leaf tensors that require grad
+(`trainable`); a step takes the gradients of every leaf with
+`torch.autograd.grad` (a leaf the loss does not reach gets zeros, as under
+`jax.grad`) and updates the leaves in place (`muon.apply_updates`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from streamvoiceanon_tpu_torch.config import ARVCConfig
+from streamvoiceanon_tpu_torch.models import arvc
+from streamvoiceanon_tpu_torch.train import muon
+from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+
+class TrainState(NamedTuple):
+    params: Dict
+    opt_state: Any
+    step: int
+
+
+def trainable(params: Dict, dtype=torch.float32) -> Dict:
+    """A copy of a parameter tree in `dtype` whose leaves require grad."""
+    return tree_map(lambda t: t.detach().to(dtype).clone().requires_grad_(True), params)
+
+
+def init_state(params: Dict, optimizer: muon.GradientTransformation) -> TrainState:
+    return TrainState(params, optimizer.init(flatten(params)), 0)
+
+
+def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.01,
+                   clip: float = 1000.0) -> muon.GradientTransformation:
+    """The AdamW fallback optimizer (MuonAdamW is `muon.muon_adamw`), with
+    the reference's gradient clipping at 1000."""
+    return muon.chain(muon.clip_by_global_norm(clip),
+                      muon.adamw(lr, b1=0.9, b2=0.98, eps=1e-6, weight_decay=weight_decay))
+
+
+def loss_fn(params: Dict, cfg: ARVCConfig, batch: Dict, delay: int,
+            weights: Tuple[float, float] = (1.0, 1.0)) -> Tuple[torch.Tensor, Dict]:
+    """(codebook_weight * codebook CE + semantic_weight * semantic CE, the
+    two CEs) of a feature batch (`content`, `base_target`, `target`,
+    `x_lens`, `style`, `timbre`)."""
+    cb, tok = arvc.forward_train(params, cfg, batch["content"], batch["base_target"],
+                                 batch["target"], batch["x_lens"], batch["style"],
+                                 batch["timbre"], delay)
+    return weights[0] * cb + weights[1] * tok, {"codebook_loss": cb, "token_loss": tok}
+
+
+def grads_of(loss: torch.Tensor, params: Dict) -> Dict:
+    """{path: gradient} of every leaf of `params`, zeros where unused."""
+    flat = flatten(params)
+    gs = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(flat.items(), gs)}
+
+
+def train_step(state: TrainState, batch: Dict, cfg: ARVCConfig,
+               optimizer: muon.GradientTransformation, delay: int,
+               weights: Tuple[float, float] = (1.0, 1.0)) -> Tuple[TrainState, Dict]:
+    """One step.  Returns (state', aux): aux holds the loss, the two CEs
+    and `grad_norm`, the global norm of the raw gradients before clipping,
+    as device scalars (no host synchronisation)."""
+    loss, aux = loss_fn(state.params, cfg, batch, delay, weights)
+    grads = grads_of(loss, state.params)
+    flat = flatten(state.params)
+    with torch.no_grad():
+        updates, opt_state = optimizer.update(grads, state.opt_state, flat)
+        muon.apply_updates(flat, updates)
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux.update(loss=loss.detach(), grad_norm=muon.global_norm(grads))
+    return TrainState(state.params, opt_state, state.step + 1), aux

@@ -25,6 +25,8 @@ from streamvoiceanon_tpu_torch.ops.attention import decode_attention
 from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
 from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
 from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
+from streamvoiceanon_tpu_torch.runtime import checkpoints
+from streamvoiceanon_tpu_torch.train.arvc_trainer import ARVCTrainer, TrainerConfig
 from streamvoiceanon_tpu_torch.utils import randparams as rp
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -44,7 +46,9 @@ def test_port_sources_import_nothing_of_jax():
     sources = {str(p.relative_to(PORT)) for p in _port_sources() if PORT in p.parents}
     assert {"audio/resample.py", "audio/fbank.py", "audio/io.py", "models/campplus.py",
             "models/speaker_encoder.py", "models/windowed_transformer.py",
-            "models/tokenizer.py", "runtime/pipeline.py"} <= sources
+            "models/tokenizer.py", "runtime/pipeline.py", "runtime/checkpoints.py",
+            "train/muon.py", "train/step.py", "train/data.py", "train/arvc_trainer.py",
+            "train/text.py", "utils/text.py", "utils/cn_norm.py"} <= sources
     bad = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -65,7 +69,9 @@ def test_importing_every_port_module_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "assert {'streamvoiceanon_tpu_torch.audio.fbank',\n"
         "        'streamvoiceanon_tpu_torch.models.speaker_encoder',\n"
-        "        'streamvoiceanon_tpu_torch.runtime.pipeline'} <= set(sys.modules)\n"
+        "        'streamvoiceanon_tpu_torch.runtime.pipeline',\n"
+        "        'streamvoiceanon_tpu_torch.runtime.checkpoints',\n"
+        "        'streamvoiceanon_tpu_torch.train.arvc_trainer'} <= set(sys.modules)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'streamvoiceanon_tpu']\n"
@@ -78,13 +84,17 @@ def test_importing_every_port_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     cfg = C.PipelineConfig()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.converter_from_numpy(cfg, {}, {}, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoints.load(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ARVCTrainer(cfg, TrainerConfig(log_dir=str(tmp_path)), {}, {}, {})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
