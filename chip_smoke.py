@@ -5,6 +5,7 @@
     python3 chip_smoke.py --breakdown          # phase 2's breakdowns alone
     python3 chip_smoke.py --session per_head_decode --chunks 40
     python3 chip_smoke.py --training           # phase 7 alone
+    python3 chip_smoke.py --eval               # phase 8 alone
 
 Phases, each reported on its own lines:
 
@@ -148,8 +149,20 @@ Phases, each reported on its own lines:
    tpu_optimized (one slow-step launch a frame after the first, one
    fast-loop launch a frame) whose codes agree with the plain flags' at
    least 90 %;
+8. checkpoints and the evals (`eval_phase`): the five published
+   checkpoint files written from phase 3's and phase 5's random trees in
+   the reference's state_dict layout, loaded by `cli.build_converter`
+   with strict key coverage, every leaf bit-equal to
+   `converter_from_numpy`; `cli anonymize` over a synthetic Kaldi
+   directory of 4 speakers x 3 utterances of 3 s with two target
+   references (one fast-loop launch a generated frame, one slow-step
+   launch a frame after the first); `cli evaluate` with cosine and PLDA
+   scoring, ASV_eval^anon on both backbones at their default configs, the
+   SER fold heads and WER from cached hypotheses: every metric finite and
+   in range, the training losses falling, CAM++ on the card against the
+   CPU within 1e-4; each step's seconds and `max_memory_allocated`;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
-   session that runs it, plus phase 6's and phase 7's counted runs), the
+   session that runs it, plus phase 6's, 7's and 8's counted runs), the
    card line, and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is nonzero and no result line is
@@ -1768,6 +1781,264 @@ def synthetic_voice(seconds: float, f0: float, seed: int) -> np.ndarray:
     return (0.1 * env * wav + 0.005 * rng.standard_normal(n)).astype(np.float32)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8's checkpoints: the JAX-layout numpy trees written back into the
+# reference's state_dict layout, the inverse of runtime/convert.py and the
+# `convert` functions of models/campplus.py and models/speaker_encoder.py
+# ---------------------------------------------------------------------------
+
+
+class _StateDict(dict):
+    """A state_dict under construction: the layer writers of `state_dicts`."""
+
+    def conv(self, prefix, p, weight_norm=False, transpose=False):
+        """Conv1d (k, in/g, out) -> (out, in/g, k); ConvTranspose1d (k, in,
+        out) -> (in, out, k).  With `weight_norm` as the parametrization's
+        original0 (the dim-0 norm) and original1 (the direction)."""
+        w = np.transpose(np.asarray(p["w"]), (1, 2, 0) if transpose else (2, 1, 0))
+        if weight_norm:
+            g = np.sqrt(np.sum(w * w, axis=tuple(range(1, w.ndim)), keepdims=True))
+            self[f"{prefix}.parametrizations.weight.original0"] = g
+            self[f"{prefix}.parametrizations.weight.original1"] = w
+        else:
+            self[f"{prefix}.weight"] = w
+        if "b" in p:
+            self[f"{prefix}.bias"] = p["b"]
+
+    def linear(self, prefix, p):
+        self[f"{prefix}.weight"] = np.transpose(np.asarray(p["w"]))
+        if "b" in p:
+            self[f"{prefix}.bias"] = p["b"]
+
+    def norm(self, prefix, p):
+        self[f"{prefix}.weight"] = p["w"]
+        if "b" in p:
+            self[f"{prefix}.bias"] = p["b"]
+
+    def bn(self, prefix, p):
+        self[f"{prefix}.running_mean"] = p["mean"]
+        self[f"{prefix}.running_var"] = p["var"]
+        self[f"{prefix}.num_batches_tracked"] = np.asarray(7, np.int64)  # ignored
+        if "w" in p:
+            self[f"{prefix}.weight"] = p["w"]
+            self[f"{prefix}.bias"] = p["b"]
+
+    def block(self, prefix, p):  # ConvNeXt block
+        self.conv(f"{prefix}.dwconv.conv", p["dwconv"])
+        self.norm(f"{prefix}.norm", p["norm"])
+        self.linear(f"{prefix}.pwconv1", p["pwconv1"])
+        self.linear(f"{prefix}.pwconv2", p["pwconv2"])
+        if p.get("gamma") is not None:
+            self[f"{prefix}.gamma"] = p["gamma"]
+
+    def encoder(self, prefix, p):  # ConvNeXt encoder
+        self.conv(f"{prefix}.downsample_layers.0.0.conv", p["stem_conv"])
+        self.norm(f"{prefix}.downsample_layers.0.1", p["stem_norm"])
+        self.norm(f"{prefix}.norm", p["final_norm"])
+        n = sum(1 for k in p if k.startswith("stage_"))
+        for i in range(n - 1):
+            self.norm(f"{prefix}.downsample_layers.{i + 1}.0", p[f"mid_norm_{i}"])
+            self.conv(f"{prefix}.downsample_layers.{i + 1}.1", p[f"mid_conv_{i}"])
+        for i in range(n):
+            for j, b in enumerate(p[f"stage_{i}"]):
+                self.block(f"{prefix}.stages.{i}.{j}", b)
+        if "g_in" in p:
+            self.conv(f"{prefix}.g_in", p["g_in"])
+
+    def stages(self, prefix, stages, transpose=False):  # quantizer down/upsample
+        for i, st in enumerate(stages):
+            self.conv(f"{prefix}.{i}.0.conv", st["conv"], transpose=transpose)
+            self.block(f"{prefix}.{i}.1", st["block"])
+
+    def wt(self, prefix, p):  # windowed transformer, layer lists
+        for i, lp in enumerate(p["layers"]):
+            q = f"{prefix}.layers.{i}"
+            self.linear(f"{q}.attention.wqkv", lp["wqkv"])
+            self.linear(f"{q}.attention.wo", lp["wo"])
+            self.norm(f"{q}.attention_norm", lp["attention_norm"])
+            self.norm(f"{q}.ffn_norm", lp["ffn_norm"])
+            for w in ("w1", "w2", "w3"):
+                self.linear(f"{q}.feed_forward.{w}", lp[w])
+            self[f"{q}.attention_layer_scale.gamma"] = lp["attn_scale"]
+            self[f"{q}.ffn_layer_scale.gamma"] = lp["ffn_scale"]
+        self.norm(f"{prefix}.norm", p["final_norm"])
+
+    def lm_block(self, prefix, lp):
+        self.linear(f"{prefix}.attention.wqkv", lp["wqkv"])
+        self.linear(f"{prefix}.attention.wo", lp["wo"])
+        self.norm(f"{prefix}.attention_norm", lp["attention_norm"])
+        self.norm(f"{prefix}.ffn_norm", lp["ffn_norm"])
+        for w in ("w1", "w2", "w3"):
+            self.linear(f"{prefix}.feed_forward.{w}", lp[w])
+
+
+def _unstack(tree, i):
+    return {k: _unstack(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def state_dicts(trees, weight_norm: bool = False):
+    """Reference-layout state_dicts (numpy arrays by key) of the JAX-layout
+    numpy trees `trees` (`tokenizer`, `vocoder`, `arvc` with stacked layers
+    as `utils/randparams` draws them, `campplus`, `speaker`; any subset):
+    the keys and layouts that the reference modules' state_dicts hold, so
+    that `runtime/convert.py` consumes every key and gives the trees back.
+    With `weight_norm` the HiFiGAN head's convs are weight-norm
+    parametrizations (resolved by the converters within rounding)."""
+    out = {}
+    if "tokenizer" in trees:
+        t, sd = trees["tokenizer"], _StateDict()
+        sd.encoder("backbone", t["backbone"])
+        sd.stages("quantizer.downsample", t["downsample"])
+        sd.wt("quantizer.pre_module", t["pre_module"])
+        sd.wt("quantizer.post_module", t["post_module"])
+        for name in ("project_in", "project_out"):
+            sd.linear(f"quantizer.residual_bsq.rvqs.0.{name}", t["lfq"][name])
+        # the BSQ bit-weight constant, derived from codebook_bits by the port
+        sd["quantizer.residual_bsq.rvqs.0.mask"] = 2 ** np.arange(
+            t["lfq"]["project_in"]["w"].shape[1])
+        out["tokenizer"] = dict(sd)
+    if "vocoder" in trees:
+        v, sd = trees["vocoder"], _StateDict()
+        sd.encoder("backbone", v["backbone"])
+        h = v["head"]
+        sd.conv("head.conv_pre.conv", h["conv_pre"], weight_norm)
+        sd.conv("head.conv_post.conv", h["conv_post"], weight_norm)
+        for i, (up, rbs) in enumerate(zip(h["ups"], h["resblocks"])):
+            sd.conv(f"head.ups.{i}.conv", up, weight_norm, transpose=True)
+            for j, rb in enumerate(rbs):
+                for name in ("convs1", "convs2"):
+                    for k, c in enumerate(rb[name]):
+                        sd.conv(f"head.resblocks.{i}.blocks.{j}.{name}.{k}.conv", c,
+                                weight_norm)
+        sd.stages("quantizer.downsample", v["downsample"])
+        sd.stages("quantizer.upsample", v["upsample"], transpose=True)
+        for g, gp in v["fsq"].items():
+            for name, lp in gp.items():
+                sd.linear(f"quantizer.residual_fsq.rvqs.{g.split('_')[1]}.{name}", lp)
+        out["vocoder"] = dict(sd)
+    if "arvc" in trees:
+        a, sd = trees["arvc"], _StateDict()
+        m = a["model"]
+        sd["embedding.weight"] = a["embedding"]
+        sd.linear("context_in", a["context_in"])
+        sd.linear("style_in", a["style_in"])
+        d = "decoder.model"
+        for name in ("embeddings", "codebook_embeddings", "fast_embeddings"):
+            sd[f"{d}.{name}.weight"] = m[name]
+        for stack, n in (("layers", m["layers"]["wqkv"]["w"].shape[0]),
+                         ("fast_layers", m["fast_layers"]["wqkv"]["w"].shape[0])):
+            for i in range(n):
+                sd.lm_block(f"{d}.{stack}.{i}", _unstack(m[stack], i))
+        sd.norm(f"{d}.norm", m["norm"])
+        sd.norm(f"{d}.fast_norm", m["fast_norm"])
+        for name in ("fast_output", "output", "fast_project_in"):
+            if name in m:
+                sd.linear(f"{d}.{name}", m[name])
+        sd["decoder.wait4start_embedding.weight"] = a["wait4start"]
+        sd["decoder.wait4end_embedding.weight"] = a["wait4end"]
+        sd["decoder.model.freqs_cis"] = np.zeros((4, 2), np.float32)  # a rebuilt buffer
+        out["arvc"] = dict(sd)
+    if "campplus" in trees:
+        c, sd = trees["campplus"], _StateDict()
+        conv2d = lambda w: np.transpose(np.asarray(w), (3, 2, 0, 1))  # noqa: E731
+        conv1d = lambda w: np.transpose(np.asarray(w), (2, 1, 0))  # noqa: E731
+        f = c["fcm"]
+        for name in ("conv1", "conv2"):
+            sd[f"head.{name}.weight"] = conv2d(f[name])
+        sd.bn("head.bn1", f["bn1"])
+        sd.bn("head.bn2", f["bn2"])
+        for layer in ("layer1", "layer2"):
+            for i, rb in enumerate(f[layer]):
+                q = f"head.{layer}.{i}"
+                sd[f"{q}.conv1.weight"] = conv2d(rb["conv1"])
+                sd[f"{q}.conv2.weight"] = conv2d(rb["conv2"])
+                sd.bn(f"{q}.bn1", rb["bn1"])
+                sd.bn(f"{q}.bn2", rb["bn2"])
+                if "shortcut_conv" in rb:
+                    sd[f"{q}.shortcut.0.weight"] = conv2d(rb["shortcut_conv"])
+                    sd.bn(f"{q}.shortcut.1", rb["shortcut_bn"])
+        sd["xvector.tdnn.linear.weight"] = conv1d(c["tdnn_conv"])
+        sd.bn("xvector.tdnn.nonlinear.batchnorm", c["tdnn_bn"])
+        sd.bn("xvector.out_nonlinear.batchnorm", c["out_bn"])
+        # the reference nests the pooling's dense layer under xvector.
+        sd["xvector.dense.linear.weight"] = conv1d(c["dense_w"])
+        sd.bn("xvector.dense.nonlinear.batchnorm", c["dense_bn"])
+        b = 1
+        while f"block{b}" in c:
+            for li, lp in enumerate(c[f"block{b}"]):
+                q = f"xvector.block{b}.tdnnd{li + 1}"
+                sd.bn(f"{q}.nonlinear1.batchnorm", lp["nl1"])
+                sd[f"{q}.linear1.weight"] = conv1d(lp["lin1_w"])
+                sd.bn(f"{q}.nonlinear2.batchnorm", lp["nl2"])
+                cam = lp["cam"]
+                sd[f"{q}.cam_layer.linear_local.weight"] = conv1d(cam["local_w"])
+                for n in ("1", "2"):
+                    sd[f"{q}.cam_layer.linear{n}.weight"] = conv1d(
+                        np.asarray(cam[f"fc{n}_w"])[None])
+                    sd[f"{q}.cam_layer.linear{n}.bias"] = cam[f"fc{n}_b"]
+            sd.bn(f"xvector.transit{b}.nonlinear.batchnorm", c[f"transit{b}"]["bn"])
+            sd[f"xvector.transit{b}.linear.weight"] = conv1d(c[f"transit{b}"]["w"])
+            b += 1
+        out["campplus"] = dict(sd)
+    if "speaker" in trees:
+        s_, sd = trees["speaker"], _StateDict()
+        e = "speaker_encoder"
+        conv = lambda prefix, w, b: sd.conv(prefix, {"w": w, "b": b})  # noqa: E731
+        ec = s_["ecapa"]
+        conv(f"{e}.layer1.conv", ec["layer1_w"], ec["layer1_b"])
+        sd.bn(f"{e}.layer1.bn", ec["layer1_bn"])
+        for layer in ("layer2", "layer3", "layer4"):
+            r, q = ec[layer], f"{e}.{layer}.se_res2block"
+            conv(f"{q}.0.conv", r["conv1_w"], r["conv1_b"])
+            sd.bn(f"{q}.0.bn", r["bn1"])
+            conv(f"{q}.2.conv", r["conv2_w"], r["conv2_b"])
+            sd.bn(f"{q}.2.bn", r["bn2"])
+            sd.linear(f"{q}.3.linear1", {"w": r["se1_w"], "b": r["se1_b"]})
+            sd.linear(f"{q}.3.linear2", {"w": r["se2_w"], "b": r["se2_b"]})
+            for i, rr in enumerate(r["res2"]):
+                conv(f"{q}.1.convs.{i}", rr["w"], rr["b"])
+                sd.bn(f"{q}.1.bns.{i}", rr["bn"])
+        conv(f"{e}.conv", ec["conv_w"], ec["conv_b"])
+        pv, pp = "perceiver_sampler", s_["perceiver"]
+        sd.linear(f"{pv}.proj_context", {"w": pp["proj_w"], "b": pp["proj_b"]})
+        sd[f"{pv}.latents"] = pp["latents"]
+        sd[f"{pv}.norm.gamma"] = pp["norm"]["gamma"]
+        for i, lp in enumerate(pp["layers"]):
+            for name in ("to_q", "to_kv", "to_out"):
+                sd.linear(f"{pv}.layers.{i}.0.{name}", {"w": lp[name]})
+            sd.linear(f"{pv}.layers.{i}.1.0", {"w": lp["ff1_w"], "b": lp["ff1_b"]})
+            sd.linear(f"{pv}.layers.{i}.1.2", {"w": lp["ff2_w"], "b": lp["ff2_b"]})
+        for name, lp in s_["fsq"].items():
+            sd.linear(f"quantizer.{name}", lp)
+        xv = s_["xvec"]
+        conv(f"{e}.pool.linear1", xv["pool_lin1_w"], xv["pool_lin1_b"])
+        conv(f"{e}.pool.linear2", xv["pool_lin2_w"], xv["pool_lin2_b"])
+        sd.bn(f"{e}.bn", xv["bn"])
+        sd.linear(f"{e}.linear", {"w": xv["lin_w"], "b": xv["lin_b"]})
+        if "bn2" in xv:
+            sd.bn(f"{e}.bn2", xv["bn2"])
+        out["speaker"] = dict(sd)
+    return out
+
+
+def write_checkpoints(ckpt_dir, sds) -> None:
+    """`state_dicts`'s output as the five published files of
+    `cli.CHECKPOINTS` (torch tensors): the vocoder's under a `net` key and
+    the ARVC's keys with DataParallel's `module.` prefix, as the converter's
+    loader accepts both."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.cli import CHECKPOINTS
+
+    for part, sd in sds.items():
+        t = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+        if part == "vocoder":
+            t = {"net": t}
+        elif part == "arvc":
+            t = {f"module.{k}": v for k, v in t.items()}
+        torch.save(t, str(Path(ckpt_dir) / CHECKPOINTS[part]))
+
+
 def prompt_side(cv, device, scfg, wrappers):
     """Phase 5: the prompt side at full width on `cv`'s weights plus seeded
     random CAM++ and speaker-encoder weights (their default configs): a 10 s
@@ -2934,6 +3205,319 @@ def training_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the published checkpoints' loader, then anonymize a dataset and
+# score its privacy and utility through the CLI
+# ---------------------------------------------------------------------------
+
+EVAL_SPEAKERS = (("spk0", 110.0, "1"), ("spk1", 150.0, "1"), ("spk2", 210.0, "2"),
+                 ("spk3", 290.0, "2"))  # (speaker, f0, SER fold)
+EVAL_EMOTIONS = ("neu", "hap", "sad")
+EVAL_SECONDS = 3.0
+# The random vocoder's waveform stays under one 16-bit step: its wav files
+# would hold silence, whose fbank features are all the clamp floor, and the
+# AA scores would all be equal.  Phase 8 scales the head's last conv (before
+# its tanh, near-linear here) and logs the anonymized wavs' peaks.
+VOCODER_GAIN = 1e5
+
+
+@contextlib.contextmanager
+def step_meters(targets):
+    """Time each (module, function name) of `targets` while it runs, with
+    the card's peak allocation over each call (`max_memory_allocated`,
+    reset on entry): {name: {"s", "calls", "peak_gib"}}.  A training
+    function that takes `history` gets a list, kept under "history"."""
+    import inspect
+
+    import torch
+
+    meters, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        m = meters.setdefault(name, {"s": 0.0, "calls": 0, "peak_gib": 0.0, "history": []})
+        takes_history = "history" in inspect.signature(fn).parameters
+
+        def wrapped(*a, _fn=fn, _m=m, _h=takes_history, **kw):
+            if _h and kw.get("history") is None:
+                kw["history"] = hist = []
+                _m["history"].append(hist)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            _m["s"] += time.perf_counter() - t0
+            _m["calls"] += 1
+            _m["peak_gib"] = max(_m["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield meters
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def write_eval_dirs(data) -> dict:
+    """The synthetic dataset `synth_dev` (EVAL_SPEAKERS x 3 utterances of 3 s
+    at 44.1 kHz from `synthetic_voice`, with text, utt2emo and spk2fold);
+    returns {utt_id: samples}."""
+    from streamvoiceanon_tpu_torch.audio.io import write_wav
+    from streamvoiceanon_tpu_torch.evals.kaldi import save_kaldi_format
+
+    d = Path(data) / "synth_dev"
+    (d / "wav").mkdir(parents=True)
+    scp, u2s, u2e, text, fold, lens = {}, {}, {}, {}, {}, {}
+    for si, (spk, f0, fo) in enumerate(EVAL_SPEAKERS):
+        fold[spk] = fo
+        for j in range(3):
+            u = f"{spk}_{j}"
+            wav = synthetic_voice(EVAL_SECONDS, f0 * (1.0 + 0.04 * j), 800 + 10 * si + j)
+            scp[u] = str(d / "wav" / f"{u}.wav")
+            write_wav(scp[u], wav, 44100)
+            u2s[u], u2e[u], lens[u] = spk, EVAL_EMOTIONS[(si + j) % 3], len(wav)
+            text[u] = f"the {spk} said number {j} twice"
+    for name, table in (("wav.scp", scp), ("utt2spk", u2s), ("utt2emo", u2e), ("text", text),
+                        ("spk2fold", fold)):
+        save_kaldi_format(table, d / name)
+    return lens
+
+
+def split_eval_dirs(data) -> None:
+    """Enrollment (each speaker's first utterance) and trial (the other two)
+    directories of `synth_dev` and of `synth_dev_anon`, sharing their wavs."""
+    from streamvoiceanon_tpu_torch.evals.kaldi import read_kaldi_format, save_kaldi_format
+
+    for src, suffix in (("synth_dev", ""), ("synth_dev_anon", "_anon")):
+        scp = read_kaldi_format(Path(data) / src / "wav.scp")
+        u2s = read_kaldi_format(Path(data) / src / "utt2spk")
+        for name, keep in (("synth_enrolls", lambda u: u.endswith("_0")),
+                           ("synth_trials", lambda u: not u.endswith("_0"))):
+            d = Path(data) / f"{name}{suffix}"
+            save_kaldi_format({u: p for u, p in scp.items() if keep(u)}, d / "wav.scp")
+            save_kaldi_format({u: s for u, s in u2s.items() if keep(u)}, d / "utt2spk")
+
+
+def eval_phase(device, wrappers):
+    """Phase 8 at the published geometry, on phase 3's tokenizer, vocoder and
+    ARVC trees and phase 5's CAM++ and speaker-encoder trees (the seeds of
+    `build_session` and `prompt_side`; the vocoder head's last conv times
+    VOCODER_GAIN, so that the anonymized audio is not silence):
+
+    - the five published checkpoint files written from those trees in the
+      reference's layout (`state_dicts`, `write_checkpoints`), loaded by
+      `cli.build_converter(dir)` with strict coverage: every leaf bit-equal
+      to `converter_from_numpy` of the same trees;
+    - `cli.main(["anonymize", ...])` over a synthetic Kaldi directory (4
+      speakers x 3 utterances of 3 s) with two target references: one
+      fast-loop launch a generated frame, one slow-step launch a frame
+      after the first, and no other kernel; every wav finite, of its
+      source's whole frames and louder than one 16-bit step; wav.scp,
+      utt2spk and the side tables complete;
+    - `cli.main(["evaluate", ...])` twice: cosine scoring with ASV_eval^anon
+      on the CAM++ backbone (`ASVTrainConfig`, 200 steps), the SER fold
+      heads and WER from hypotheses cached here; then PLDA scoring with the
+      ECAPA attacker (`ECAPAASVConfig`, 300 steps).  The attackers train on
+      the anonymized directory and the original one (the VPC recipe trains
+      on anonymized speech alone; with random weights the original speakers
+      are what makes a falling loss a fair check).  Every EER, min-Cllr,
+      linkability, UAR and WER finite and in range; the ASV, ECAPA and SER
+      losses falling (the mean of the last ten steps below the first ten's);
+    - CAM++ embeddings of four utterances on the card against the same
+      function on the CPU, within 1e-4 of the largest (TF32 off).
+
+    Reports the seconds and `max_memory_allocated` of each step.  Returns
+    the anonymization's launch counts and the numbers."""
+    import tempfile
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import cli
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.audio.io import read_wav, write_wav
+    from streamvoiceanon_tpu_torch.evals import anonymize as anon
+    from streamvoiceanon_tpu_torch.evals import asv_train, ecapa_asv, ser, wer
+    from streamvoiceanon_tpu_torch.evals.kaldi import read_kaldi_format, save_kaldi_format
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+    from streamvoiceanon_tpu_torch.utils.tree import flatten
+
+    t_phase = time.time()
+    cfg = C.PipelineConfig()
+    trees = {"tokenizer": rp.tokenizer_params_np(cfg.tokenizer, 1),
+             "vocoder": rp.vocoder_params_np(cfg.vocoder, 2),
+             "arvc": rp.arvc_params_np(cfg.arvc, 3),
+             "campplus": rp.campplus_params_np(cfg.campplus, 5),
+             "speaker": rp.speaker_encoder_params_np(cfg.speaker, 6)}
+    post = trees["vocoder"]["head"]["conv_post"]
+    post["w"] = post["w"] * np.float32(VOCODER_GAIN)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        ckpt, data, res = (Path(tmp) / n for n in ("ckpt", "data", "results"))
+        ckpt.mkdir()
+        t0 = time.perf_counter()
+        write_checkpoints(ckpt, state_dicts(trees))
+        write_s = time.perf_counter() - t0
+        mib = sum(f.stat().st_size for f in ckpt.iterdir()) / 2**20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = cli.build_converter(str(ckpt))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ref = P.converter_from_numpy(
+            cv.cfg, trees["tokenizer"], trees["vocoder"], trees["arvc"], device=device,
+            campplus_np=trees["campplus"], speaker_np=trees["speaker"])
+        n_leaves = 0
+        for name in ("tokenizer_params", "vocoder_params", "arvc_params", "campplus_params",
+                     "speaker_params"):
+            a, b = flatten(getattr(cv, name)), flatten(getattr(ref, name))
+            if a.keys() != b.keys():
+                raise AssertionError(f"checkpoint load: {name} keys differ: "
+                                     f"{sorted(set(a) ^ set(b))[:6]}")
+            for k in a:
+                if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"checkpoint load: {name} {k} differs from "
+                                         "converter_from_numpy")
+            n_leaves += len(a)
+        del ref
+        out["load"] = {"write_s": write_s, "load_s": load_s, "mib": mib, "leaves": n_leaves}
+        log(f"[8] checkpoints: five files of {mib:.1f} MiB written from phase 3's and "
+            f"5's trees in the reference layout in {write_s:.2f} s; cli.build_converter "
+            f"(torch.load onto the card, strict coverage, the bridge) {load_s:.2f} s; "
+            f"{n_leaves} leaves bit-equal to converter_from_numpy")
+        del cv
+        torch.cuda.empty_cache()
+
+        # ---- anonymize
+        lens = write_eval_dirs(data)
+        refs = [str(Path(tmp) / f"target{i}.wav") for i in range(2)]
+        for path, (f0, seed) in zip(refs, ((130.0, 861), (240.0, 862))):
+            write_wav(path, synthetic_voice(8.0, f0, seed), 44100)
+        zero(wrappers)
+        with step_meters([(anon, "anonymize_dataset")]) as m:
+            cli.main(["anonymize", "--data-dir", str(data / "synth_dev"), "--out-dir",
+                      str(data / "synth_dev_anon"), "--target-refs", *refs, "--ckpt-dir",
+                      str(ckpt)])
+        counts = read_counts(wrappers)
+        frames = sum(-(-(n // SPF) // 16) * 16 for n in lens.values())
+        want = counts_of(slow=frames - len(lens), fast=frames)
+        if counts != want:
+            raise AssertionError(f"anonymize: launch counts {counts}, expected {want} "
+                                 f"({frames} frames over {len(lens)} utterances)")
+        anon_dir = data / "synth_dev_anon"
+        scp = read_kaldi_format(anon_dir / "wav.scp")
+        if sorted(scp) != sorted(lens) or read_kaldi_format(anon_dir / "utt2spk") != \
+                read_kaldi_format(data / "synth_dev" / "utt2spk"):
+            raise AssertionError("anonymize: wav.scp or utt2spk incomplete")
+        for side in ("text", "utt2emo", "spk2fold"):
+            if (anon_dir / side).read_text() != (data / "synth_dev" / side).read_text():
+                raise AssertionError(f"anonymize: {side} not copied")
+        peaks = []
+        for u, path in scp.items():
+            wav, sr = read_wav(path)
+            peaks.append(float(np.abs(wav).max()))
+            if sr != 44100 or len(wav) != lens[u] // SPF * SPF or not np.all(np.isfinite(wav)) \
+                    or np.abs(wav).max() < 2 / 32768:
+                raise AssertionError(f"anonymize: {u} has {len(wav)} samples at {sr} Hz, "
+                                     f"peak {np.abs(wav).max():.3g}; expected "
+                                     f"{lens[u] // SPF * SPF}, finite, above one 16-bit step")
+        an = m["anonymize_dataset"]
+        audio_s = sum(lens.values()) / 44100.0
+        out["anonymize"] = {"s": an["s"], "rtf": an["s"] / audio_s, "audio_s": audio_s,
+                            "peak_gib": an["peak_gib"], "counts": counts}
+        log(f"[8] cli anonymize: {len(lens)} utterances, {audio_s:.1f} s of audio, "
+            f"{frames} frames generated: {1e3 * an['s']:.1f} ms (the converter's load "
+            f"apart), {1e3 * an['s'] / len(lens):.1f} ms an utterance, real-time factor "
+            f"{out['anonymize']['rtf']:.4f}, max_memory_allocated {an['peak_gib']:.2f} GiB; "
+            f"launches {counts}; wav peaks {min(peaks):.4f} to {max(peaks):.4f} (the vocoder "
+            f"head's last conv times {VOCODER_GAIN:g})")
+
+        # ---- evaluate
+        split_eval_dirs(data)
+        texts = read_kaldi_format(data / "synth_dev" / "text")
+        for name in ("synth_dev", "synth_dev_anon"):  # cached hypotheses
+            hyp = {u: (t if name == "synth_dev" else t.replace("number", "numbers"))
+                   for u, t in texts.items()}
+            save_kaldi_format(hyp, res / "asr" / name / "text")
+        targets = [(anon, "speaker_embeddings"), (asv_train, "train_asv_eval"),
+                   (ecapa_asv, "train_ecapa_asv"), (ser, "train_fold_classifiers"),
+                   (ser, "train_head"), (wer, "evaluate_asr")]
+        runs = (("cosine", "campplus", True), ("plda", "ecapa", False))
+        results, run_s = {}, {}
+        with step_meters(targets) as meters:
+            for dist, backbone, utility in runs:
+                argv = ["evaluate", "--data-dir", str(data), "--results-dir",
+                        str(res), "--ckpt-dir", str(ckpt), "--asv-enrolls",
+                        "synth_enrolls", "--asv-trials", "synth_trials",
+                        "--train-asv-on-anon", "--train-dirs", "synth_dev_anon", "synth_dev",
+                        "--asv-distance", dist, "--asv-anon-backbone", backbone]
+                if utility:
+                    argv += ["--ser-datasets", "synth_dev", "--ser-emotions",
+                             *EVAL_EMOTIONS, "--asr-datasets", "synth_dev"]
+                t0 = time.perf_counter()
+                results[dist] = cli.main(argv)
+                run_s[dist] = time.perf_counter() - t0
+        for dist, r in results.items():
+            for row in r["asv"]:
+                if not (0 <= row["EER"] <= 100 and np.isfinite(row["cllr_min"])
+                        and row["cllr_min"] >= 0 and 0 <= row["linkability"] <= 1):
+                    raise AssertionError(f"evaluate {dist}: ASV row out of range: {row}")
+            if [r_["model"] for r_ in r["asv"]] != ["ASV_eval"] * 3 + ["ASV_eval_anon"]:
+                raise AssertionError(f"evaluate {dist}: ASV rows {r['asv']}")
+        for row in results["cosine"]["ser"]:
+            if not 0 <= row["UAR"] <= 100:
+                raise AssertionError(f"evaluate: SER row out of range: {row}")
+        wers = [row["WER"] for row in results["cosine"]["asr"]]
+        if not (wers[0] == 0.0 and 0 < wers[1] <= 100):
+            raise AssertionError(f"evaluate: WER {wers}, expected 0 and the cached "
+                                 "hypotheses' substitutions")
+        for name, what in (("train_asv_eval", "ASV_eval^anon (CAM++)"),
+                           ("train_ecapa_asv", "ECAPA"), ("train_head", "SER heads")):
+            for h in meters[name]["history"]:
+                if not (len(h) >= 20 and np.all(np.isfinite(h))
+                        and np.mean(h[-10:]) < np.mean(h[:10])):
+                    raise AssertionError(f"{what}: losses not falling: first "
+                                         f"{h[:3]}, last {h[-3:]}")
+        # CAM++ on the card against the same function on the CPU
+        cp = cli.build_converter(str(ckpt)).campplus_params
+        cp_cpu = P.campplus_params(trees["campplus"], "cpu")
+        utts = anon.load_kaldi_dir(str(data / "synth_enrolls"))
+        e_card = anon.speaker_embeddings(cp, cfg.campplus, utts)
+        e_cpu = anon.speaker_embeddings(cp_cpu, cfg.campplus, utts)
+        emb_err = float(np.abs(e_card - e_cpu).max())
+        if emb_err > 1e-4 * np.abs(e_cpu).max():
+            raise AssertionError(f"CAM++ on the card against the CPU: max abs err {emb_err:.3e}")
+    hist = {n: meters[n]["history"] for n in ("train_asv_eval", "train_ecapa_asv",
+                                               "train_head")}
+    steps = {n: {k: meters[n][k] for k in ("s", "calls", "peak_gib")} for n in meters}
+    out["evaluate"] = {"steps": steps, "rows": results, "run_s": run_s, "emb_err": emb_err}
+    fmt = lambda n: (f"{steps[n]['s']:.2f} s over {steps[n]['calls']} calls, "  # noqa: E731
+                     f"max_memory_allocated {steps[n]['peak_gib']:.2f} GiB")
+    log(f"[8] cli evaluate, cosine + ASV_eval^anon on CAM++ + SER + WER: "
+        f"{run_s['cosine']:.1f} s; PLDA + the ECAPA attacker: "
+        f"{run_s['plda']:.1f} s (each with building the converter)")
+    log(f"[8] steps: CAM++ embeddings {fmt('speaker_embeddings')}; ASV_eval^anon training "
+        f"(CAM++ head, 200 steps of 32 x 3 s) {fmt('train_asv_eval')}; ECAPA training "
+        f"(300 steps of 32 x 3 s) {fmt('train_ecapa_asv')}; SER fold heads "
+        f"{fmt('train_fold_classifiers')}; WER scoring {fmt('evaluate_asr')}")
+    first_last = lambda h: f"{np.mean(h[:10]):.3f} -> {np.mean(h[-10:]):.3f}"  # noqa: E731
+    log(f"[8] losses, mean of the first ten steps -> the last ten: ASV_eval^anon "
+        f"{first_last(hist['train_asv_eval'][0])}, ECAPA {first_last(hist['train_ecapa_asv'][0])}"
+        f", SER heads " + ", ".join(first_last(h) for h in hist["train_head"]))
+    for dist, r in results.items():
+        for row in r["asv"]:
+            log(f"[8] {dist} {row['model']} {row['enrollment']}-{row['trial']}: EER "
+                f"{row['EER']}, min-Cllr {row['cllr_min']}, linkability {row['linkability']}")
+    log(f"[8] SER UAR " + ", ".join(f"{row['ser']} {row['UAR']:.3f}"
+                                    for row in results["cosine"]["ser"])
+        + f"; WER {wers}; CAM++ card against CPU max abs err {emb_err:.3e}")
+    log(f"[8] done in {time.time() - t_phase:.1f} s")
+    out["counts"] = out["anonymize"]["counts"]
+    return out
+
+
 def fmt_split(split) -> str:
     return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
@@ -2952,12 +3536,7 @@ def main() -> int:
         from streamvoiceanon_tpu_torch import config as C
         from streamvoiceanon_tpu_torch import resolve_device
         from streamvoiceanon_tpu_torch.ops import _build
-        from streamvoiceanon_tpu_torch.ops.attention import decode_attention
-        from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
-        from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
-        from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
-        from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
-        from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
+        wrappers = kernel_wrappers()
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})",
               file=sys.stderr)
@@ -3108,8 +3687,6 @@ def main() -> int:
     log(f"[2] done in {time.time() - t0:.1f} s")
 
     # ---- phase 3: tpu_optimized, then three shorter sessions on its weights
-    wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
-                "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
     scfg = C.StreamConfig(max_prompt_frames=32, max_seq_frames=64, buffer_frames=8,
                           delay=2)
     sess, rng, t_par, t_pre, cv = build_session(cfg, device, scfg, C.SamplingConfig(),
@@ -3153,6 +3730,10 @@ def main() -> int:
 
     # ---- phase 7: training
     for key, n in training_phase(device, wrappers)["counts"].items():
+        launches[key] += n
+
+    # ---- phase 8: the checkpoints' loader, anonymization and the evals
+    for key, n in eval_phase(device, wrappers)["counts"].items():
         launches[key] += n
 
     # ---- phase 4
@@ -3204,6 +3785,19 @@ def breakdown_main() -> int:
     return 0
 
 
+def kernel_wrappers():
+    """The six kernel wrappers by key; each counts its launches."""
+    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
+    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
+    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
+    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
+    from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
+    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
+
+    return {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
+            "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
+
+
 def training_main() -> int:
     """`python3 chip_smoke.py --training`: phase 7 alone, after building the
     kernels."""
@@ -3215,12 +3809,6 @@ def training_main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from streamvoiceanon_tpu_torch import resolve_device
     from streamvoiceanon_tpu_torch.ops import _build
-    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
-    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
-    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
-    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
-    from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
-    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
 
     device = resolve_device()
     card = subprocess.run(
@@ -3230,12 +3818,38 @@ def training_main() -> int:
     t0 = time.time()
     _build.build_all()
     log(f"[1] build: {time.time() - t0:.1f} s")
-    wrappers = {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
-                "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
-    out = training_phase(device, wrappers)
+    out = training_phase(device, kernel_wrappers())
     log(card)
     print(json.dumps({"training": {k: v for k, v in out.items() if k != "gen_ms"}}),
           flush=True)
+    return 0
+
+
+def eval_main() -> int:
+    """`python3 chip_smoke.py --eval`: phase 8 alone, after building the
+    kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from streamvoiceanon_tpu_torch import resolve_device
+    from streamvoiceanon_tpu_torch.ops import _build
+
+    device = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.time()
+    _build.build_all()
+    log(f"[1] build: {time.time() - t0:.1f} s")
+    out = eval_phase(device, kernel_wrappers())
+    log(card)
+    print(json.dumps({"eval": {"load": out["load"], "anonymize": out["anonymize"],
+                               "steps": out["evaluate"]["steps"],
+                               "run_s": out["evaluate"]["run_s"]}}), flush=True)
     return 0
 
 
@@ -3273,6 +3887,8 @@ if __name__ == "__main__":
         sys.exit(breakdown_main())
     if argv == ["--training"]:
         sys.exit(training_main())
+    if argv == ["--eval"]:
+        sys.exit(eval_main())
     if argv[:1] == ["--session"]:
         sys.exit(session_main(argv[1], int(argv[3]) if argv[2:3] == ["--chunks"] else 40))
     sys.exit(main())

@@ -16,10 +16,32 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from streamvoiceanon_tpu_torch.config import ARVCConfig, SamplingConfig, replace
 from streamvoiceanon_tpu_torch.models import dual_ar
+
+
+def prepare_params(raw: Dict) -> Dict:
+    """`runtime/convert.arvc`'s numpy tree (a `decoder` with per-layer lists)
+    -> the stacked numpy layout of `utils/randparams.arvc_params_np`: every
+    leaf of the slow and fast layers gains a leading (L,) axis.
+    `params.arvc_params` carries it over to the device."""
+
+    def stack(layers):
+        return {k: stack([lp[k] for lp in layers]) if isinstance(layers[0][k], dict)
+                else np.stack([np.asarray(lp[k]) for lp in layers]) for k in layers[0]}
+
+    model = dict(raw["decoder"]["model"])
+    model["layers"] = stack(model["layers"])
+    model["fast_layers"] = stack(model["fast_layers"])
+    p = {"embedding": raw["embedding"], "context_in": raw["context_in"],
+         "style_in": raw["style_in"], "model": model}
+    if "wait4start" in raw["decoder"]:
+        p["wait4start"] = raw["decoder"]["wait4start"]
+        p["wait4end"] = raw["decoder"]["wait4end"]
+    return p
 
 
 def spk_condition(params: Dict, style_vec: torch.Tensor, timbre: torch.Tensor) -> torch.Tensor:

@@ -6,12 +6,15 @@ inference; BatchNorm uses running statistics.
 The input is Kaldi fbank features (B, T, 80), mean-normalised per
 utterance.  Inside, activations are channels-first (B, C, T) and the 2-D
 stem NCHW with H the frequency axis; weights are in PyTorch's conv layouts
-(`params.campplus_params`), linear weights (in, out)."""
+(`params.campplus_params`), linear weights (in, out).  `convert` maps the
+reference's state_dict to the JAX package's numpy tree, which
+`params.campplus_params` carries over."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -97,3 +100,87 @@ def apply(params: Dict, cfg: CAMPPlusConfig, feat: torch.Tensor,
     var = ((x - mean[:, :, None]) ** 2 * mask).sum(dim=2) / torch.clamp(n - 1.0, min=1.0)
     stats = torch.cat([mean, torch.sqrt(var)], dim=-1)
     return _bn(params["dense_bn"], stats @ params["dense_w"][:, :, 0].t())
+
+
+# ---------------------------------------------------------------------------
+# Converter
+# ---------------------------------------------------------------------------
+
+
+def _t_bn(sd, prefix) -> Dict:
+    p = {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
+    if f"{prefix}.weight" in sd:
+        p["w"] = sd[f"{prefix}.weight"]
+        p["b"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _t_conv2d(sd, prefix) -> np.ndarray:
+    return np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))  # -> (kh, kw, in, out)
+
+
+def _t_conv1d_w(sd, prefix) -> np.ndarray:
+    return np.transpose(sd[f"{prefix}.weight"], (2, 1, 0))
+
+
+def convert(sd, cfg: CAMPPlusConfig) -> Dict:
+    """The reference CAMPPlus state_dict -> the JAX package's numpy tree
+    (`utils/randparams.campplus_params_np`'s), with the reference's key
+    remap of `xvector.stats` / `xvector.dense` to `stats` / `dense`."""
+    from streamvoiceanon_tpu_torch.runtime.convert import rename_keys, to_numpy
+
+    sd = rename_keys(
+        to_numpy(sd),
+        lambda k: k.replace("xvector.stats", "stats").replace("xvector.dense", "dense"),
+    )
+
+    def res_block(prefix):
+        p = {
+            "conv1": _t_conv2d(sd, f"{prefix}.conv1"),
+            "bn1": _t_bn(sd, f"{prefix}.bn1"),
+            "conv2": _t_conv2d(sd, f"{prefix}.conv2"),
+            "bn2": _t_bn(sd, f"{prefix}.bn2"),
+        }
+        if f"{prefix}.shortcut.0.weight" in sd:
+            p["shortcut_conv"] = _t_conv2d(sd, f"{prefix}.shortcut.0")
+            p["shortcut_bn"] = _t_bn(sd, f"{prefix}.shortcut.1")
+        return p
+
+    fcm = {
+        "conv1": _t_conv2d(sd, "head.conv1"),
+        "bn1": _t_bn(sd, "head.bn1"),
+        "conv2": _t_conv2d(sd, "head.conv2"),
+        "bn2": _t_bn(sd, "head.bn2"),
+        "layer1": [res_block(f"head.layer1.{i}") for i in range(2)],
+        "layer2": [res_block(f"head.layer2.{i}") for i in range(2)],
+    }
+    p: Dict = {
+        "fcm": fcm,
+        "tdnn_conv": _t_conv1d_w(sd, "xvector.tdnn.linear"),
+        "tdnn_bn": _t_bn(sd, "xvector.tdnn.nonlinear.batchnorm"),
+        "out_bn": _t_bn(sd, "xvector.out_nonlinear.batchnorm"),
+        "dense_w": _t_conv1d_w(sd, "dense.linear"),
+        "dense_bn": _t_bn(sd, "dense.nonlinear.batchnorm"),
+    }
+    for bi, n_layers in enumerate(cfg.block_layers):
+        layers = []
+        for li in range(n_layers):
+            lp = f"xvector.block{bi + 1}.tdnnd{li + 1}"
+            layers.append({
+                "nl1": _t_bn(sd, f"{lp}.nonlinear1.batchnorm"),
+                "lin1_w": _t_conv1d_w(sd, f"{lp}.linear1"),
+                "nl2": _t_bn(sd, f"{lp}.nonlinear2.batchnorm"),
+                "cam": {
+                    "local_w": _t_conv1d_w(sd, f"{lp}.cam_layer.linear_local"),
+                    "fc1_w": _t_conv1d_w(sd, f"{lp}.cam_layer.linear1")[0],
+                    "fc1_b": sd[f"{lp}.cam_layer.linear1.bias"],
+                    "fc2_w": _t_conv1d_w(sd, f"{lp}.cam_layer.linear2")[0],
+                    "fc2_b": sd[f"{lp}.cam_layer.linear2.bias"],
+                },
+            })
+        p[f"block{bi + 1}"] = layers
+        p[f"transit{bi + 1}"] = {
+            "bn": _t_bn(sd, f"xvector.transit{bi + 1}.nonlinear.batchnorm"),
+            "w": _t_conv1d_w(sd, f"xvector.transit{bi + 1}.linear"),
+        }
+    return p

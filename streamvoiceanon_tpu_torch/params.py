@@ -212,11 +212,18 @@ def campplus_params(p: Dict, device, dtype=torch.float32) -> Dict:
 
 
 def speaker_params(p: Dict, device, dtype=torch.float32) -> Dict:
-    """The speaker encoder's timbre path (models/speaker_encoder.py): ECAPA's
-    convs in PyTorch's layout, the perceiver's and FSQ's linear weights (in,
-    out).  The x-vector head, which the timbre path does not use, is left
-    out."""
-    return _convs({k: p[k] for k in ("ecapa", "perceiver", "fsq")}, device, dtype)
+    """The speaker encoder (models/speaker_encoder.py): ECAPA's convs in
+    PyTorch's layout, the perceiver's and FSQ's linear weights (in, out),
+    and where the tree has it the x-vector head (`x_vector`; its k=1 pooling
+    convs in PyTorch's layout, its linear (in, out))."""
+    return _convs({k: p[k] for k in ("ecapa", "perceiver", "fsq", "xvec") if k in p},
+                  device, dtype)
+
+
+def ecapa_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The ECAPA attacker of evals/ecapa_asv.py ({'backbone', 'head'}): its
+    convs in PyTorch's layout, its linear weights (in, out)."""
+    return _convs(p, device, dtype)
 
 
 def cast_tree(x, dtype):

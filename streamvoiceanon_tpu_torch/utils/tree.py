@@ -1,21 +1,23 @@
-"""Parameter trees as flat dicts: nested dicts of tensors keyed by their
-path of dict keys, in sorted key order (the JAX package's leaf order)."""
+"""Parameter trees as flat dicts: nested dicts (and lists) of tensors keyed
+by their path of dict keys and list indices, dict keys in sorted order (the
+JAX package's leaf order)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Tuple, Union
 
 import torch
 
-Path = Tuple[str, ...]
+Path = Tuple[Union[str, int], ...]
 
 
-def flatten(tree: Dict, prefix: Path = ()) -> Dict[Path, torch.Tensor]:
-    """{path: leaf} of a nested dict, keys sorted at every level."""
+def flatten(tree, prefix: Path = ()) -> Dict[Path, torch.Tensor]:
+    """{path: leaf} of a nested dict, keys sorted at every level; a list's
+    items follow in order under their indices."""
     out: Dict[Path, torch.Tensor] = {}
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
+    items = (sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree))
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(flatten(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = v

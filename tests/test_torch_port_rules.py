@@ -48,7 +48,10 @@ def test_port_sources_import_nothing_of_jax():
             "models/speaker_encoder.py", "models/windowed_transformer.py",
             "models/tokenizer.py", "runtime/pipeline.py", "runtime/checkpoints.py",
             "train/muon.py", "train/step.py", "train/data.py", "train/arvc_trainer.py",
-            "train/text.py", "utils/text.py", "utils/cn_norm.py"} <= sources
+            "train/text.py", "utils/text.py", "utils/cn_norm.py", "runtime/convert.py",
+            "cli.py", "evals/kaldi.py", "evals/privacy_metrics.py", "evals/plda.py",
+            "evals/anonymize.py", "evals/asv_train.py", "evals/ecapa_asv.py", "evals/ser.py",
+            "evals/wer.py", "evals/plots.py", "evals/harness.py", "evals/tables.py"} <= sources
     bad = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -71,7 +74,11 @@ def test_importing_every_port_module_loads_no_jax():
         "        'streamvoiceanon_tpu_torch.models.speaker_encoder',\n"
         "        'streamvoiceanon_tpu_torch.runtime.pipeline',\n"
         "        'streamvoiceanon_tpu_torch.runtime.checkpoints',\n"
-        "        'streamvoiceanon_tpu_torch.train.arvc_trainer'} <= set(sys.modules)\n"
+        "        'streamvoiceanon_tpu_torch.train.arvc_trainer',\n"
+        "        'streamvoiceanon_tpu_torch.runtime.convert',\n"
+        "        'streamvoiceanon_tpu_torch.evals.harness',\n"
+        "        'streamvoiceanon_tpu_torch.evals.plots'} <= set(sys.modules)\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'streamvoiceanon_tpu']\n"
@@ -95,6 +102,20 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         checkpoints.load(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ARVCTrainer(cfg, TrainerConfig(log_dir=str(tmp_path)), {}, {}, {})
+    from streamvoiceanon_tpu_torch import cli
+    from streamvoiceanon_tpu_torch.evals import ecapa_asv, ser
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.build_converter(str(tmp_path))
+    for argv in (["anonymize", "--data-dir", str(tmp_path), "--out-dir", str(tmp_path),
+                  "--target-refs", "t.wav"],
+                 ["evaluate", "--data-dir", str(tmp_path), "--results-dir", str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ecapa_asv.train_ecapa_asv([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ser.train_fold_classifiers(0, ser.SERHeadConfig(), {}, {}, {}, {}, [])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
