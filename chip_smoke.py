@@ -6,6 +6,8 @@
     python3 chip_smoke.py --session per_head_decode --chunks 40
     python3 chip_smoke.py --training           # phase 7 alone
     python3 chip_smoke.py --eval               # phase 8 alone
+    python3 chip_smoke.py --asr                # phase 9 alone
+    python3 chip_smoke.py --head               # the published head's kernel ms
 
 Phases, each reported on its own lines:
 
@@ -35,6 +37,9 @@ Phases, each reported on its own lines:
      carrying its own packed state, float32: max abs error <= 1e-3 over z
      and every packed buffer; before chunk 4 the kernel's kept scratch is
      filled with NaN, which must not reach any output;
+   - the head at 5 and 6 ResBlock branches (`branch_heads`: more than one
+     launch of its kernel runs), float32 over 6 chunks (1e-3) and bf16 over
+     4 chunks (the bounds below);
    - the head and the front with bf16 weights and tails over 4 chunks
      (kept scratch NaN before chunk 2): every output within
      HEAD_BF16_ULPS / FRONT_BF16_ULPS bf16 ulps of its largest value, and
@@ -161,6 +166,22 @@ Phases, each reported on its own lines:
    SER fold heads and WER from cached hypotheses: every metric finite and
    in range, the training losses falling, CAM++ on the card against the
    CPU within 1e-4; each step's seconds and `max_memory_allocated`;
+9. the ASR side (`asr_phase`), with the earlier phases' trees freed and no
+   kernel launched: the native w2v-BERT teacher (`W2VBertConfig()`, 24 x
+   1024, seeded random weights, truncated at layer 17) on 4 x 4 s at 16 kHz:
+   shape (4, 200, 1024), float32 within 1e-4 relative of a float64 forward,
+   its ms, and `convert` of its Hugging Face state_dict bit-equal; the
+   content-encoder trainer (`PipelineConfig()`'s tokenizer with its
+   distillation head and `ASRDecoderConfig()`, about 300 M trainable
+   parameters) on 4 synthetic sources of 86 latents with random text and a
+   random style vector: step 1's loss within 1e-4 of a float64 recompute,
+   the quantizer side's gradients exactly zero, 20 steps at lr 1e-3 with a
+   falling loss (reported against half the first), step ms and latent
+   frames a second, peak memory, a greedy decode of 16 tokens against the
+   CPU's; `cli evaluate --asr-train-dirs` with `--asr-model compact` and
+   `w2v` on synthetic Kaldi directories: WER finite, the losses falling,
+   seconds and peak memory of each; 5 steps of `W2VASRConfig.full()` at
+   batch 8 x 256 frames: step ms, peak memory, finite losses;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
    session that runs it, plus phase 6's, 7's and 8's counted runs), the
    card line, and as the last line {"ok": true, "device": {...}}.
@@ -205,19 +226,65 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def cuda_event():
+    """A timing event recorded on the current stream."""
+    import torch
+
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def event_ms(marks) -> list:
+    """The ms between consecutive events of `marks`, once the last is done."""
+    marks[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
 def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
+    a = cuda_event()
     for _ in range(n):
         fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    return event_ms([a, cuda_event()])[0] / n
+
+
+def ptxas_kernels(text: str) -> list:
+    """[name, registers, bytes of spill stores] of each entry function in
+    ptxas's verbose output."""
+    out = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append([m.group(1), 0, 0])
+            continue
+        m = re.search(r"Used (\d+) registers", line) or re.search(
+            r"(\d+) bytes spill stores", line)
+        if m and out:
+            out[-1][1 if "registers" in line else 2] = int(m.group(1))
+    return out
+
+
+def log_build(logs: dict) -> None:
+    """The kernels, registers and spill stores of each built source; the
+    head's apart for its WIDE instantiations (levels that average more than
+    MAX_CONV branches) and the rest, which every published level runs."""
+
+    def line(ks):
+        return (f"{len(ks)} kernels, max {max((k[1] for k in ks), default=0)} registers, "
+                f"{sum(k[2] for k in ks)} bytes spill stores")
+
+    for name, text in logs.items():
+        ks = ptxas_kernels(text)
+        log(f"[1]   {name}: {line(ks)}")
+        if name == "hifigan_head":
+            wide = [k for k in ks if "Lb1E" in k[0]]
+            log(f"[1]     of which WIDE: {line(wide)}; the rest: "
+                f"{line([k for k in ks if k not in wide])}")
 
 
 def nbytes(*ts) -> int:
@@ -1600,6 +1667,26 @@ def time_front_attention(tcfg, dcfg, device):
 
 def head_leaves(state):
     return [state.pre, *state.ups, *state.res, state.post]
+
+
+def branch_heads():
+    """Heads of more ResBlock branches than one launch of the kernel runs
+    (`ops/hifigan.py` MAX_CONV, 4): 5 and 6 branches at tiny widths, the
+    JAX kernel computing any count."""
+    from streamvoiceanon_tpu_torch import config as C
+
+    return {
+        "five_branch": C.HiFiGANConfig(
+            num_mels=16, upsample_initial_channel=32, upsample_rates=(2, 2),
+            upsample_kernel_sizes=(4, 4), resblock_kernel_sizes=(3, 5, 7, 3, 5),
+            resblock_dilation_sizes=((1, 2),) * 5, pre_conv_kernel_size=5,
+            post_conv_kernel_size=5, hop_length=4),
+        "six_branch": C.HiFiGANConfig(
+            num_mels=32, upsample_initial_channel=64, upsample_rates=(4, 2),
+            upsample_kernel_sizes=(8, 4), resblock_kernel_sizes=(3, 5, 7, 9, 3, 5),
+            resblock_dilation_sizes=((1, 3, 5),) * 6, pre_conv_kernel_size=7,
+            post_conv_kernel_size=7, hop_length=8),
+    }
 
 
 def compare_head(hcfg, device, chunks: int, check: bool, wd=None, sd=None, kern=None):
@@ -3518,6 +3605,387 @@ def eval_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the ASR side
+# ---------------------------------------------------------------------------
+
+ASR_SOURCES, ASR_FRAMES = 4, 86  # 4 sources of 86 latents (4 s at 44.1 kHz)
+ASR_STEPS = 20  # content-encoder steps on one batch
+ASR_LR = 1e-3
+ASR_REL = 1e-4  # float32 against float64
+TEACHER_LAYER = 17
+W2V_FULL_STEPS, W2V_FULL_BATCH = 5, 8
+# the recognisers' training steps through the CLI, cut from their configs'
+# 400 and 300: the CTC recursion is a loop of small launches a frame (70.7 s
+# and 114.0 s at the full counts on the H100, PERF.md section 5)
+RECOGNISER_STEPS = {"compact": 100, "w2v": 60}
+
+
+def w2v_state_dict(params, cfg) -> dict:
+    """A port conformer tree as the Hugging Face Wav2Vec2BertModel's
+    state_dict (numpy): the inverse of `w2v_bert_native.convert`."""
+    from streamvoiceanon_tpu_torch.utils.tree import tree_map
+
+    p = tree_map(lambda t: t.detach().cpu().numpy(), params)
+    sd = {}
+
+    def lin(name, q, i=None):
+        w, b = (q["w"], q["b"]) if i is None else (q["w"][i], q["b"][i])
+        sd[name + ".weight"], sd[name + ".bias"] = np.ascontiguousarray(w.T), b
+
+    def ln(name, q, i=None):
+        sd[name + ".weight"], sd[name + ".bias"] = (q["w"], q["b"]) if i is None else (
+            q["w"][i], q["b"][i])
+
+    ln("feature_projection.layer_norm", p["fp_ln"])
+    lin("feature_projection.projection", p["proj"])
+    L = p["layers"]
+    for i in range(cfg.n_layers):
+        pre = f"encoder.layers.{i}."
+        for ours, theirs in (("ffn1", "ffn1"), ("ffn2", "ffn2")):
+            ln(pre + f"{theirs}_layer_norm", L[f"{ours}_ln"], i)
+            lin(pre + f"{theirs}.intermediate_dense", L[ours]["in"], i)
+            lin(pre + f"{theirs}.output_dense", L[ours]["out"], i)
+        ln(pre + "self_attn_layer_norm", L["attn_ln"], i)
+        for q, name in (("q", "linear_q"), ("k", "linear_k"), ("v", "linear_v"),
+                        ("o", "linear_out")):
+            lin(pre + f"self_attn.{name}", L["attn"][q], i)
+        sd[pre + "self_attn.distance_embedding.weight"] = L["attn"]["dist"][i]
+        c = L["conv"]
+        ln(pre + "conv_module.layer_norm", c["ln"], i)
+        sd[pre + "conv_module.pointwise_conv1.weight"] = np.ascontiguousarray(
+            c["pw1"][i].T[:, :, None])
+        sd[pre + "conv_module.depthwise_conv.weight"] = c["dw"][i]
+        ln(pre + "conv_module.depthwise_layer_norm", c["dw_ln"], i)
+        sd[pre + "conv_module.pointwise_conv2.weight"] = np.ascontiguousarray(
+            c["pw2"][i].T[:, :, None])
+        ln(pre + "final_layer_norm", L["final_ln"], i)
+    return sd
+
+
+def write_asr_train_dir(data, n_spk: int = 4, n_utt: int = 4) -> None:
+    """`synth_train`, the recognisers' training set (n_spk x n_utt synthetic
+    utterances of 3 s with text), and `synth_dev_anon`, the scored
+    counterpart of `synth_dev` (its wavs and tables: phase 9 scores the
+    recognisers, not an anonymization)."""
+    from streamvoiceanon_tpu_torch.audio.io import write_wav
+    from streamvoiceanon_tpu_torch.evals.kaldi import read_kaldi_format, save_kaldi_format
+
+    d = Path(data) / "synth_train"
+    (d / "wav").mkdir(parents=True)
+    scp, u2s, text = {}, {}, {}
+    for si in range(n_spk):
+        for j in range(n_utt):
+            u = f"trn{si}_{j}"
+            scp[u] = str(d / "wav" / f"{u}.wav")
+            write_wav(scp[u], synthetic_voice(EVAL_SECONDS, 100.0 + 40.0 * si + 5.0 * j,
+                                              900 + 10 * si + j), 44100)
+            u2s[u], text[u] = f"trn{si}", f"the trn{si} said number {j} twice"
+    for name, table in (("wav.scp", scp), ("utt2spk", u2s), ("text", text)):
+        save_kaldi_format(table, d / name)
+    src, dst = Path(data) / "synth_dev", Path(data) / "synth_dev_anon"
+    for name in ("wav.scp", "utt2spk", "text"):
+        save_kaldi_format(read_kaldi_format(src / name), dst / name)
+
+
+def _peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available() else 0.0
+
+
+def _reset_peak() -> float:
+    """Free what nothing holds, reset the peak; the GiB still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if not torch.cuda.is_available():
+        return 0.0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def teacher_check(device, wcfg, seconds: float = 4.0):
+    """The native w2v-BERT teacher at `wcfg` on seeded random weights, on
+    ASR_SOURCES x `seconds` of synthetic speech at 16 kHz, truncated at
+    TEACHER_LAYER: its shape, float32 against a float64 forward of the same
+    features, its ms; then `convert` of the tree's Hugging Face state_dict,
+    every leaf bit-equal.  Returns (teacher, its numbers)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.models import w2v_bert_native as wn
+    from streamvoiceanon_tpu_torch.models.w2v_bert import W2vBertTeacher
+    from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+    params = wn.init_params(torch.Generator(device=device).manual_seed(91), wcfg)
+    n_par = sum(t.numel() for t in flatten(params).values())
+    teacher = W2vBertTeacher(layer=TEACHER_LAYER, native_params=params, native_cfg=wcfg,
+                             device=device)
+    from streamvoiceanon_tpu_torch.audio.resample import resample
+
+    n16 = int(seconds * 16000)
+    w44 = np.stack([synthetic_voice(seconds + 0.01, 120.0 + 30 * i, 950 + i)
+                    for i in range(ASR_SOURCES)])
+    wav = resample(torch.from_numpy(w44).to(device), 44100, 16000)[:, :n16].cpu().numpy()
+    feats = teacher.features(wav)
+    want = (ASR_SOURCES, int(seconds * 50), wcfg.hidden)
+    if tuple(feats.shape) != want or not torch.isfinite(feats).all():
+        raise AssertionError(f"teacher: {tuple(feats.shape)} (want {want}) or not finite")
+    runs = [cuda_ms(lambda: teacher.features(wav), 1, warmup=0) for _ in range(3)]
+    x = torch.nn.functional.pad(torch.from_numpy(wav).to(device), (160, 160))
+    f, m = wn.stacked_features(x)
+    with torch.no_grad():
+        p64 = tree_map(lambda t: t.double(), params)
+        ref = wn.apply(p64, wcfg, f.double(), m, num_layers=TEACHER_LAYER)
+        del p64
+    err = float((feats.double() - ref).abs().max() / ref.abs().max())
+    if not err <= ASR_REL:
+        raise AssertionError(f"teacher: float32 against float64 rel err {err:.3e} > {ASR_REL}")
+    t0 = time.perf_counter()
+    back = P.w2v_bert_params(wn.convert(w2v_state_dict(params, wcfg), wcfg), device)
+    conv_s = time.perf_counter() - t0
+    a, b = flatten(back), flatten(params)
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("teacher: convert of the tree's HF state_dict is not bit-equal")
+    out = {"shape": list(feats.shape), "rel_err": err, "ms": min(runs), "ms_runs": runs,
+           "params": n_par, "convert_s": conv_s, "leaves": len(a)}
+    log(f"[9] teacher (w2v-BERT {wcfg.n_layers} x {wcfg.hidden}, {n_par / 1e6:.1f} M params, "
+        f"layer {TEACHER_LAYER}) on {ASR_SOURCES} x {seconds:.0f} s: {tuple(feats.shape)}, "
+        f"float32 against float64 rel err {err:.3e} (bound {ASR_REL}); "
+        f"{min(runs):.3f} ms (runs {', '.join(f'{r:.3f}' for r in runs)}); convert of its "
+        f"HF state_dict {conv_s:.2f} s, {len(a)} leaves bit-equal")
+    return teacher, out
+
+
+def asr_trainer_check(device, teacher, pcfg, acfg, steps: int = ASR_STEPS):
+    """The content-encoder trainer (`train/asr_trainer.py`) at `pcfg`'s
+    tokenizer with its head and `acfg`, seeded random weights, on one batch
+    of ASR_SOURCES synthetic sources of ASR_FRAMES latents, random text of
+    20 to 40 tokens and a random style vector, the teacher's features as
+    targets: the first loss against a float64 recompute (the post-module
+    latents in float32, the head, the L1 and the decoder in float64), the
+    quantizer side's gradients exactly zero, `steps` steps at ASR_LR (steps
+    2.. timed), the peak memory, then a greedy decode of 16 tokens on the
+    card and on the CPU."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.audio.resample import resample
+    from streamvoiceanon_tpu_torch.models import asr_decoder, tokenizer
+    from streamvoiceanon_tpu_torch.train import asr_trainer as at
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+    from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+    base = _reset_peak()
+    tok_np = rp.tokenizer_params_np(pcfg.tokenizer, 71, with_head=True)
+    asr_np = rp.asr_decoder_params_np(acfg, 72)
+    tr = at.ASRTrainer(pcfg, acfg, at.ASRTrainerConfig(lr=ASR_LR),
+                       P.tokenizer_params(tok_np, device, with_head=True),
+                       P.asr_decoder_params(asr_np, device), device=device)
+    del tok_np, asr_np
+    n_tok = sum(t.numel() for t in flatten(tr.params["tokenizer"]).values())
+    n_asr = sum(t.numel() for t in flatten(tr.params["asr"]).values())
+    rng = np.random.default_rng(73)
+    T = ASR_FRAMES * SPF
+    waves = np.stack([synthetic_voice(T / 44100 + 0.01, 110.0 + 35 * i, 960 + i)[:T]
+                      for i in range(ASR_SOURCES)])
+    w16 = resample(torch.from_numpy(waves).to(device), 44100, 16000)
+    tf = teacher.features(w16)
+    text_lens = rng.integers(20, 41, ASR_SOURCES)
+    batch = tr.prepare({
+        "waves": waves, "teacher_feats": tf,
+        "teacher_lens": np.full(ASR_SOURCES, tf.shape[1] - 1),
+        "latent_lens": np.full(ASR_SOURCES, ASR_FRAMES),
+        "text": rng.integers(0, 50000, (ASR_SOURCES, 40)), "text_lens": text_lens,
+        "style": rng.standard_normal((ASR_SOURCES, 1, pcfg.tokenizer.head.gin_channels)).astype(
+            np.float32)})
+
+    # float64 recompute of the first loss, from the float32 post-module latents
+    with torch.no_grad():
+        zq, _ = tokenizer.quantized_latents(tr.params["tokenizer"], pcfg.tokenizer,
+                                            batch["waves"])
+        d64 = lambda tree: tree_map(lambda t: t.detach().double(), tree)  # noqa: E731
+        z64 = zq.double()
+        l1 = at.head_l1(d64(tr.params["tokenizer"]["head"]), pcfg.tokenizer, z64,
+                        batch["teacher_feats"].double(), batch["teacher_lens"],
+                        batch["style"].double())
+        s2s = asr_decoder.forward(d64(tr.params["asr"]), acfg, z64, batch["latent_lens"],
+                                  batch["text"], batch["text_lens"])
+        want = float(s2s + l1)
+        del z64
+    aux = tr.step(batch)
+    first = float(aux["loss"])
+    rel = abs(first - want) / abs(want)
+    zero = [k for k in aux["grads"] if k[0] == "tokenizer" and (
+        k[1] in ("backbone", "downsample", "pre_module") or k[1:3] == ("lfq", "project_in"))]
+    nonzero = [k for k in zero if aux["grads"][k].any()]
+    del aux
+    losses, marks = [first], [cuda_event()]
+    for _ in range(steps - 1):
+        losses.append(tr.step(batch)["loss"])
+        marks.append(cuda_event())
+    losses = [float(v) for v in losses]
+    step_ms = event_ms(marks)
+    peak = _peak_gib()
+    with torch.no_grad():
+        lat, _ = tokenizer.quantized_latents(tr.params["tokenizer"], pcfg.tokenizer,
+                                             batch["waves"][:1])
+        asr_p = tree_map(lambda t: t.detach(), tr.params["asr"])
+        asr_decoder.greedy_decode(asr_p, acfg, lat, max_len=2)  # warm-up
+        a = cuda_event()
+        tok_dev = asr_decoder.greedy_decode(asr_p, acfg, lat, max_len=16)
+        dec_ms = event_ms([a, cuda_event()])[0]
+        tok_cpu = asr_decoder.greedy_decode(tree_map(lambda t: t.cpu(), asr_p), acfg,
+                                            lat.cpu(), max_len=16)
+    same = bool(torch.equal(tok_dev.cpu(), tok_cpu))
+    out = {"params_tokenizer": n_tok, "params_asr": n_asr, "loss64": want, "loss": first,
+           "rel": rel, "zero_leaves": len(zero), "losses": losses,
+           "step_ms": float(np.median(step_ms)), "step_ms_runs": step_ms,
+           "frames_per_s": ASR_SOURCES * ASR_FRAMES / (np.median(step_ms) / 1e3),
+           "peak_gib": peak, "base_gib": base, "decode_ms": dec_ms, "decode_same": same}
+    log(f"[9] content-encoder trainer: tokenizer with head {n_tok / 1e6:.1f} M + ASR decoder "
+        f"{n_asr / 1e6:.1f} M trainable params; batch {ASR_SOURCES} x {ASR_FRAMES} latents, "
+        f"text {int(text_lens.min())}..{int(text_lens.max())} tokens, teacher "
+        f"{tuple(tf.shape)}; step 1 loss {first:.6f} against float64 {want:.6f} (rel "
+        f"{rel:.2e}, bound {ASR_REL}); {len(zero)} quantizer-side leaves, "
+        f"{len(nonzero)} with a nonzero gradient; {steps} steps at lr {ASR_LR}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses[-1] / losses[0]:.3f} of the first, "
+        f"target 0.5); step ms p50 {np.median(step_ms):.3f} (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}), {out['frames_per_s']:.1f} latent frames a second; peak "
+        f"{peak:.2f} GiB ({base:.2f} GiB held before the phase); greedy decode of 16 "
+        f"tokens {dec_ms:.1f} ms, tokens {'equal to' if same else 'differ from'} the CPU's")
+    if not (rel <= ASR_REL and len(zero) > 0 and not nonzero and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"content-encoder trainer: rel {rel:.3e}, nonzero quantizer-side "
+                             f"gradients {nonzero[:4]}, losses {losses}")
+    del tr, batch
+    return out
+
+
+def recogniser_check(device, tmp, full_cfg=None):
+    """Both ASR_eval recognisers through `cli evaluate --asr-datasets
+    synth_dev --asr-train-dirs synth_train --asr-model {compact, w2v}` at
+    their default configs but for RECOGNISER_STEPS training steps: WER
+    finite and not negative, each loss history falling (the mean of its
+    last ten steps below its first ten's), seconds and peak memory of
+    each; then W2V_FULL_STEPS steps of `full_cfg`
+    (`W2VASRConfig.full()`, 24 x 1024) at batch W2V_FULL_BATCH x 256
+    frames: step ms, peak memory, finite losses."""
+    import dataclasses
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import cli
+    from streamvoiceanon_tpu_torch.evals import asr_eval_train as aet
+    from streamvoiceanon_tpu_torch.evals import asr_eval_w2v as aw
+    from streamvoiceanon_tpu_torch.evals import wer
+    from streamvoiceanon_tpu_torch.evals.anonymize import load_kaldi_dir
+    from streamvoiceanon_tpu_torch.evals.kaldi import read_kaldi_format
+    from streamvoiceanon_tpu_torch.utils.tree import flatten
+
+    data = Path(tmp) / "data"
+    write_eval_dirs(data)
+    write_asr_train_dir(data)
+    out = {}
+    for model, mod, fn, cfg in (
+            ("compact", aet, "train_asr_eval", aet.ASREvalConfig),
+            ("w2v", aw, "train_asr_eval_w2v", aw.W2VASRConfig)):
+        base = _reset_peak()
+        train = getattr(mod, fn)
+        setattr(mod, fn, functools.partial(train, cfg=cfg(steps=RECOGNISER_STEPS[model])))
+        with contextlib.ExitStack() as stack:
+            stack.callback(setattr, mod, fn, train)
+            meters = stack.enter_context(step_meters([(mod, fn), (wer, "evaluate_asr")]))
+            t0 = time.perf_counter()
+            res = cli.main(["evaluate", "--data-dir", str(data), "--results-dir",
+                            str(Path(tmp) / f"res_{model}"), "--asr-datasets", "synth_dev",
+                            "--asr-train-dirs", "synth_train", "--asr-model", model,
+                            "--device", str(device)])
+            run_s = time.perf_counter() - t0
+        hist = meters[fn]["history"][0]
+        wers = [r["WER"] for r in res["asr"]]
+        first, last = float(np.mean(hist[:10])), float(np.mean(hist[-10:]))
+        out[model] = {"wer": wers, "run_s": run_s, "train_s": meters[fn]["s"],
+                      "score_s": meters["evaluate_asr"]["s"], "steps": len(hist),
+                      "loss_first10": first, "loss_last10": last,
+                      "peak_gib": meters[fn]["peak_gib"], "base_gib": base}
+        log(f"[9] cli evaluate --asr-model {model}: {len(hist)} training steps in "
+            f"{meters[fn]['s']:.1f} s (peak {meters[fn]['peak_gib']:.2f} GiB, {base:.2f} held "
+            f"before), loss {first:.3f} -> {last:.3f} (mean of the first ten steps -> the "
+            f"last ten); scoring {meters['evaluate_asr']['s']:.1f} s; WER "
+            + ", ".join(f"{r['asr']} {r['WER']}" for r in res["asr"])
+            + f"; the command {run_s:.1f} s")
+        if not (all(np.isfinite(w) and w >= 0 for w in wers) and len(wers) == 2
+                and last < first):
+            raise AssertionError(f"recogniser {model}: WER {wers}, losses {first} -> {last}")
+    if full_cfg is None:
+        full_cfg = aw.W2VASRConfig.full()
+    full_cfg = dataclasses.replace(full_cfg, steps=W2V_FULL_STEPS, batch_size=W2V_FULL_BATCH)
+    path = data / "synth_train"
+    utts = load_kaldi_dir(str(path))
+    texts = read_kaldi_format(path / "text")
+    marks, hist = [], []
+    step = aw.adamw_step
+
+    def timed_step(*a, **kw):
+        r = step(*a, **kw)
+        marks.append(cuda_event())
+        return r
+
+    base = _reset_peak()
+    aw.adamw_step = timed_step
+    try:
+        params, _ = aw.train_asr_eval_w2v(utts, texts, cfg=full_cfg, utt_sample_rate=44100,
+                                          history=hist, device=device)
+    finally:
+        aw.adamw_step = step
+    ms = event_ms(marks)
+    n_par = sum(t.numel() for t in flatten(params).values())
+    peak = _peak_gib()
+    out["w2v_full"] = {"params": n_par, "losses": hist, "step_ms": float(np.median(ms)),
+                       "step_ms_runs": ms, "peak_gib": peak, "base_gib": base}
+    log(f"[9] W2VASRConfig.full() ({full_cfg.encoder.n_layers} x {full_cfg.encoder.hidden}, "
+        f"{n_par / 1e6:.1f} M params): {W2V_FULL_STEPS} steps at batch {W2V_FULL_BATCH} x "
+        f"{full_cfg.max_frames} frames, step ms p50 {np.median(ms):.1f} (steps 2.."
+        f"{W2V_FULL_STEPS}: {', '.join(f'{x:.1f}' for x in ms)}), peak {peak:.2f} GiB "
+        f"({base:.2f} held before), losses {', '.join(f'{x:.3f}' for x in hist)}")
+    if not (len(hist) == W2V_FULL_STEPS and np.isfinite(hist).all()):
+        raise AssertionError(f"W2VASRConfig.full(): losses {hist}")
+    del params
+    return out
+
+
+def asr_phase(device, wcfg=None, pcfg=None, acfg=None, full_cfg=None, steps: int = ASR_STEPS):
+    """Phase 9, the ASR side, at full width unless configurations are given:
+    the native teacher (`teacher_check`, `W2VBertConfig()`), the
+    content-encoder trainer (`asr_trainer_check`, `PipelineConfig()`'s
+    tokenizer with its head and `ASRDecoderConfig()`), both recognisers
+    through the CLI and the published conformer recogniser
+    (`recogniser_check`).  It launches none of the six kernels."""
+    import tempfile
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.models import asr_decoder
+    from streamvoiceanon_tpu_torch.models import w2v_bert_native as wn
+
+    t_phase = time.time()
+    _reset_peak()
+    teacher, out = teacher_check(device, wcfg or wn.W2VBertConfig())
+    out = {"teacher": out}
+    out["trainer"] = asr_trainer_check(device, teacher, pcfg or C.PipelineConfig(),
+                                       acfg or asr_decoder.ASRDecoderConfig(), steps)
+    del teacher
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        out.update(recogniser_check(device, tmp, full_cfg))
+    log(f"[9] done in {time.time() - t_phase:.1f} s")
+    return out
+
+
 def fmt_split(split) -> str:
     return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
@@ -3550,11 +4018,7 @@ def main() -> int:
     t0 = time.time()
     logs = _build.build_all()
     log(f"[1] build: {time.time() - t0:.1f} s ({', '.join(logs) or 'cached'})")
-    for name, text in logs.items():
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
-        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", text))
-        log(f"[1]   {name}: {len(regs)} kernels, max {max(regs, default=0)} registers, "
-            f"{spills} bytes spill stores")
+    log_build(logs)
 
     cfg = C.tpu_optimized(C.PipelineConfig())
     d = cfg.arvc.decoder
@@ -3606,7 +4070,7 @@ def main() -> int:
         f"{st32['enc']['err']:.3e} (bound {TOL})")
     b16 = torch.bfloat16
     from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step_plain
-    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step_plain
+    from streamvoiceanon_tpu_torch.ops.hifigan import device_launches, head_stream_step_plain
 
     for name, fn, plain, ulps, flips in (
             ("head", compare_head, head_stream_step_plain, HEAD_BF16_ULPS, HEAD_FLIP_SHARE),
@@ -3623,6 +4087,14 @@ def main() -> int:
             raise AssertionError(f"bf16 {name}: the control without the rounding reads flip "
                                  f"share {cshare:.4f}, within the bound {flips}: the check "
                                  "cannot see a missing rounding")
+    for name, bc in branch_heads().items():
+        e32 = compare_head(bc, device, 6, True)[0]
+        e16, u16, f16 = compare_head(bc, device, 4, True, b16, b16)
+        log(f"[2] head at {name} ({len(bc.resblock_kernel_sizes)} ResBlock branches, "
+            f"{device_launches(bc, 4)} launches a call): f32 over 6 chunks max abs err "
+            f"{e32:.3e} (bound {TOL}); bf16 over 4 chunks max abs err {e16:.3e}, {u16:.2f} "
+            f"bf16 ulps (bound {HEAD_BF16_ULPS}), flip share {f16:.4f} (bound "
+            f"{HEAD_FLIP_SHARE})")
     for name, wc in wider_fronts(tcfg).items():
         for dt in (torch.float32, b16):
             err, eu, _ = compare_front(wc, device, 4, True, dt, dt)
@@ -3735,6 +4207,13 @@ def main() -> int:
     # ---- phase 8: the checkpoints' loader, anonymization and the evals
     for key, n in eval_phase(device, wrappers)["counts"].items():
         launches[key] += n
+
+    # ---- phase 9: the ASR side, with the earlier phases' trees freed
+    del sess, psess, cv, ps
+    zero(wrappers)
+    asr_phase(device)
+    if any(read_counts(wrappers).values()):
+        raise AssertionError(f"phase 9 launched kernels: {read_counts(wrappers)}")
 
     # ---- phase 4
     kernels = []
@@ -3853,6 +4332,59 @@ def eval_main() -> int:
     return 0
 
 
+def head_main() -> int:
+    """`python3 chip_smoke.py --head`: the published HiFiGAN head kernel of
+    the package beside this script (T0 = 4, float32 and bf16), three
+    CUDA-event runs of 30 calls each, after ptxas's counts where it builds
+    the head; a copy of the script in an earlier tree times that tree's
+    kernel, so two trees can be run in turns."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step, init_packed_state
+
+    from streamvoiceanon_tpu_torch.ops import _build
+
+    log_build({k: v for k, v in _build.build_all().items() if k == "hifigan_head"})
+    hcfg = C.HiFiGANConfig()
+    _, pw = head_params(hcfg, "cuda")
+    out = {"tree": Path(__file__).resolve().parent.name}
+    for dt in (torch.float32, torch.bfloat16):
+        pwd = {k: [{n: t.to(dt) for n, t in s_.items()} for s_ in v] if k == "stages"
+               else v.to(dt) for k, v in pw.items()}
+        st = init_packed_state(hcfg, 1, dt, device="cuda")
+        x = torch.randn((1, 4, hcfg.num_mels), device="cuda")
+        out[str(dt)[6:]] = [cuda_ms(lambda: head_stream_step(pwd, st, x, hcfg), 30)
+                            for _ in range(3)]
+    log(json.dumps(out))
+    return 0
+
+
+def asr_main() -> int:
+    """`python3 chip_smoke.py --asr`: phase 9 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from streamvoiceanon_tpu_torch import resolve_device
+
+    device = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    out = asr_phase(device)
+    log(card)
+    print(json.dumps({"asr": out}), flush=True)
+    return 0
+
+
 def session_main(name: str, chunks: int) -> int:
     """`python3 chip_smoke.py --session NAME [--chunks N]`: one phase-3
     session alone (NAME a program set of `config`, e.g. per_head_decode),
@@ -3889,6 +4421,10 @@ if __name__ == "__main__":
         sys.exit(training_main())
     if argv == ["--eval"]:
         sys.exit(eval_main())
+    if argv == ["--asr"]:
+        sys.exit(asr_main())
+    if argv == ["--head"]:
+        sys.exit(head_main())
     if argv[:1] == ["--session"]:
         sys.exit(session_main(argv[1], int(argv[3]) if argv[2:3] == ["--chunks"] else 40))
     sys.exit(main())

@@ -10,7 +10,8 @@
         --target-refs T1.wav [T2.wav ...] [--alpha 0.7] [--delay 2]
     python -m streamvoiceanon_tpu_torch.cli evaluate --data-dir D --results-dir R
         [--asv-enrolls E --asv-trials T [--train-asv-on-anon --train-dirs X]]
-        [--ser-datasets S] [--asr-datasets A]
+        [--ser-datasets S] [--asr-datasets A [--asr-train-dirs X]
+        [--asr-model {w2v,compact}]]
 
 Every command runs on the CUDA card unless given `--device cpu`, under the
 `tpu_optimized` program set on the card (the JAX package takes it on a
@@ -180,16 +181,49 @@ def cmd_anonymize(args):
     print(f"anonymized {args.data_dir} -> {args.out_dir}")
 
 
+def train_transcriber(args):
+    """The ASR_eval recogniser (`--asr-model`: the w2v-BERT conformer or the
+    compact one) trained on the Kaldi directories `--asr-train-dirs` (their
+    `text` tables the labels), as its transcriber."""
+    from pathlib import Path
+
+    from streamvoiceanon_tpu_torch.evals.anonymize import load_kaldi_dir
+    from streamvoiceanon_tpu_torch.evals.kaldi import read_kaldi_format
+
+    utts, texts = [], {}
+    for d in args.asr_train_dirs:
+        path = Path(args.data_dir) / d
+        utts.extend(load_kaldi_dir(str(path), sample_rate=args.sample_rate))
+        texts.update(read_kaldi_format(path / "text"))
+    dev = resolve_device(args.device)
+    if args.asr_model == "w2v":
+        from streamvoiceanon_tpu_torch.evals import asr_eval_w2v as aw
+
+        print(f"[asr_eval] training w2v-BERT conformer recognizer on {len(utts)} utts",
+              file=sys.stderr)
+        params, vocab = aw.train_asr_eval_w2v(utts, texts, utt_sample_rate=args.sample_rate,
+                                              device=dev)
+        return aw.make_transcriber_w2v(params, vocab)
+    from streamvoiceanon_tpu_torch.evals import asr_eval_train as aet
+
+    print(f"[asr_eval] training compact CTC recognizer on {len(utts)} utts", file=sys.stderr)
+    params, vocab = aet.train_asr_eval(utts, texts, utt_sample_rate=args.sample_rate,
+                                       device=dev)
+    return aet.make_transcriber(params, vocab)
+
+
 def cmd_evaluate(args):
     """Privacy and utility evaluation over Kaldi directories laid out as
     `<name>` and `<name><anon-suffix>`.  The WER step scores hypotheses
-    cached under `<results-dir>/asr/<set>/text`."""
+    cached under `<results-dir>/asr/<set>/text`, or else those of an
+    ASR_eval recogniser trained on `--asr-train-dirs`."""
     from pathlib import Path
 
     from streamvoiceanon_tpu_torch.evals import tables
     from streamvoiceanon_tpu_torch.evals.harness import (ASRStep, ASVStep, EvalConfig,
                                                          SERStep, run_evaluation)
 
+    transcriber = None
     if args.asr_datasets:
         sets = list(args.asr_datasets) + [d + args.anon_suffix for d in args.asr_datasets]
         cached = all((Path(args.results_dir) / "asr" / s / "text").exists() for s in sets)
@@ -197,11 +231,7 @@ def cmd_evaluate(args):
             sys.exit("evaluate: --asr-datasets given but hypotheses are not cached under "
                      "results-dir/asr and no --asr-train-dirs to fit an ASR_eval recognizer")
         if not cached:
-            raise NotImplementedError(
-                "evaluate --asr-train-dirs: training the ASR_eval recognizer "
-                f"(--asr-model {args.asr_model}) waits for the port of "
-                "evals/asr_eval_train.py and evals/asr_eval_w2v.py (slice 16); "
-                "cache the hypotheses under results-dir/asr/<set>/text instead")
+            transcriber = train_transcriber(args)
     if args.ckpt_dir:
         cv = build_converter(args.ckpt_dir, args.seed, args.device, args.lenient_ckpt)
         cp_params, cp_cfg = cv.campplus_params, cv.cfg.campplus
@@ -225,7 +255,8 @@ def cmd_evaluate(args):
         if args.ser_datasets else None,
         sample_rate=args.sample_rate,
     )
-    results = run_evaluation(cfg, campplus_params=cp_params, cp_cfg=cp_cfg)
+    results = run_evaluation(cfg, campplus_params=cp_params, cp_cfg=cp_cfg,
+                             transcriber=transcriber)
     for name, rows in results.items():
         print(f"== {name} ==")
         print(tables.to_string(rows))
@@ -363,7 +394,7 @@ def main(argv=None):
                    help="WER sets (hypotheses cached under results-dir/asr)")
     e.add_argument("--asr-train-dirs", nargs="*", default=[],
                    help="kaldi dirs (wav.scp+text) to fit an ASR_eval recognizer when "
-                        "hypotheses are not cached (not ported yet: raises)")
+                        "hypotheses are not cached")
     e.add_argument("--asr-model", choices=["w2v", "compact"], default="w2v",
                    help="ASR_eval family: w2v-BERT conformer CTC or the compact "
                         "char-CTC transformer")

@@ -14,8 +14,15 @@
 // leaves the branch's output in D_b; the next consumer (the next stage's
 // upsample, or conv_post) averages the branches as it loads a row,
 // ((D_0 + D_1) + D_2) / 3 in the plain version's order, then applies SiLU.
+// A launch runs at most MAX_CONV convs: the plan gives a round of more
+// branches several launches.  The raw loads of the first MAX_CONV D_b are
+// in flight ahead of their chunk; a further D_b is read as its row is
+// stored to shared memory.  That read is compiled only into the WIDE
+// instantiations, launched for a level that averages more than MAX_CONV
+// buffers, so the other levels (every level of the published three
+// branches) run the same code as without it.
 //
-// `level_kernel<TM, TN, W, S>` is an implicit-GEMM causal dilated conv on
+// `level_kernel<TM, TN, W, S, WIDE>` is an implicit-GEMM causal dilated conv on
 // the CUDA cores in full float32 (no TF32).  Its blocks walk the level's work list:
 // per conv, per TM x TN output tile, per K split (a tile's splits on
 // consecutive blocks).  The plan gives each level the tile with the least
@@ -97,7 +104,7 @@ constexpr int KC = 16;         // K rows per shared-memory chunk (mirrored in op
 constexpr int NT = 256;        // threads: 16 x 16, each (TM / 16) x (TN / 16) outputs
 constexpr int MIN_BLOCKS = 3;  // resident blocks a SM: the register cap (TARGET_BLOCKS)
 constexpr int PART = 4096;     // floats of split partial a block: the largest tile
-constexpr int MAX_CONV = 4;    // convs in one level (mirrored)
+constexpr int MAX_CONV = 4;    // convs in one launch, and D_b loaded ahead (mirrored)
 constexpr int HDR = 5;         // header ints of `geo`: n_level, n_buf, buf_elems, part_elems, n_ticket
 constexpr int LVL = 3;         // ints before a level's records: n_conv, TM, TN
 // the tiles (TM, TN) a level may take, each for every (W, S): 16 x 64,
@@ -158,16 +165,19 @@ __device__ __forceinline__ void stamp(const Lv& L, int point) {
 
 __device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); }
 
-// An element of x from its raw loads v[m] (m < x_n): the branches' mean,
-// summed in branch order and then divided as the plain version does, then
-// SiLU, each rounded to the working type.
-template <typename Cv>
-__device__ __forceinline__ float x_value(const Cv& a, const float (&v)[MAX_CONV]) {
+// An element of x from its raw loads v[m] (m < min(x_n, MAX_CONV)), with
+// WIDE the buffers past MAX_CONV read here at element `o`: the branches'
+// mean, summed in branch order and then divided as the plain version does,
+// then SiLU, each rounded to the working type.
+template <bool WIDE, typename Cv>
+__device__ __forceinline__ float x_value(const Cv& a, const float (&v)[MAX_CONV], size_t o) {
   float s = v[0];
   if (a.x_n > 1) {
 #pragma unroll
     for (int m = 1; m < MAX_CONV; ++m)
       if (m < a.x_n) s += v[m];
+    if constexpr (WIDE)
+      for (int m = MAX_CONV; m < a.x_n; ++m) s += a.x[m * a.x_stride + o];
     s = Cv::act(s / (float)a.x_n);
   }
   return a.silu ? Cv::act(silu_f(s)) : s;
@@ -181,15 +191,16 @@ __device__ __forceinline__ void load_x(const Cv& a, size_t o, float (&v)[MAX_CON
 }
 
 // row r of [old tail; x], column c
-template <typename Cv>
+template <bool WIDE, typename Cv>
 __device__ __forceinline__ float full_at(const Cv& a, int r, int c) {
   if (r < a.rows) return to_f(a.tail[(size_t)r * a.Cin + c]);
   float v[MAX_CONV];
-  load_x(a, (size_t)(r - a.rows) * a.Cin + c, v);
-  return x_value(a, v);
+  const size_t o = (size_t)(r - a.rows) * a.Cin + c;
+  load_x(a, o, v);
+  return x_value<WIDE>(a, v, o);
 }
 
-template <int TM, int TN, typename W, typename S>
+template <int TM, int TN, typename W, typename S, bool WIDE>
 struct Tile {
   using Cv = Conv<W, S>;
   using Lv = Level<W, S>;
@@ -221,6 +232,13 @@ struct Tile {
         }
       }
     }
+  }
+
+  // The element of x that A element i (= tid + u * NT) of K-chunk `ch`
+  // reads, for an x row (WIDE only).
+  static __device__ __forceinline__ size_t x_off(const Cv& a, int ch, int m0, int i) {
+    const int k = ch * KC + i % KC, j = k / a.Cin;
+    return (size_t)(m0 + i / KC + j * a.d - a.rows) * a.Cin + (k - j * a.Cin);
   }
 
   // This thread's NJ B elements of K-chunk `ch`: weight rows.
@@ -270,7 +288,7 @@ struct Tile {
       const int total = a.rows_pad * a.Cin;
       for (int i = b * NT + tid; i < total; i += nb * NT) {
         const int r = i / a.Cin, c = i - r * a.Cin;
-        a.new_tail[i] = r < a.rows ? from_f<S>(full_at(a, a.T + r, c)) : a.tail[i];
+        a.new_tail[i] = r < a.rows ? from_f<S>(full_at<WIDE>(a, a.T + r, c)) : a.tail[i];
       }
     }
 
@@ -287,7 +305,8 @@ struct Tile {
 #pragma unroll
       for (int u = 0; u < MI; ++u) {
         const int i = tid + u * NT;
-        As[i % KC][i / KC] = xrow >> u & 1 ? x_value(a, ra[u]) : ra[u][0];
+        As[i % KC][i / KC] =
+            xrow >> u & 1 ? x_value<WIDE>(a, ra[u], WIDE ? x_off(a, ch, m0, i) : 0) : ra[u][0];
       }
 #pragma unroll
       for (int u = 0; u < NJ; ++u) {
@@ -393,10 +412,10 @@ struct Tile {
   }
 };
 
-template <int TM, int TN, typename W, typename S>
+template <int TM, int TN, typename W, typename S, bool WIDE>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     level_kernel(const __grid_constant__ Level<W, S> L) {
-  using Tl = Tile<TM, TN, W, S>;
+  using Tl = Tile<TM, TN, W, S, WIDE>;
   static_assert(TM * KC % NT == 0 && KC * TN % NT == 0, "whole loads per thread");
   __shared__ float As[KC][Tl::AP];
   __shared__ float Bs[KC][TN];
@@ -417,14 +436,23 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
 }
 
-template <typename W, typename S>
-cudaError_t launch_level(int tm, int tn, int blocks, cudaStream_t st, const Level<W, S>& L) {
+template <typename W, typename S, bool WIDE>
+cudaError_t launch_tile(int tm, int tn, int blocks, cudaStream_t st, const Level<W, S>& L) {
   const dim3 g(blocks), t(NT);
-  if (tm == 16 && tn == 64) return launch_pdl(level_kernel<16, 64, W, S>, g, t, st, L);
-  if (tm == 32 && tn == 64) return launch_pdl(level_kernel<32, 64, W, S>, g, t, st, L);
-  if (tm == 64 && tn == 64) return launch_pdl(level_kernel<64, 64, W, S>, g, t, st, L);
-  if (tm == 64 && tn == 32) return launch_pdl(level_kernel<64, 32, W, S>, g, t, st, L);
+  if (tm == 16 && tn == 64) return launch_pdl(level_kernel<16, 64, W, S, WIDE>, g, t, st, L);
+  if (tm == 32 && tn == 64) return launch_pdl(level_kernel<32, 64, W, S, WIDE>, g, t, st, L);
+  if (tm == 64 && tn == 64) return launch_pdl(level_kernel<64, 64, W, S, WIDE>, g, t, st, L);
+  if (tm == 64 && tn == 32) return launch_pdl(level_kernel<64, 32, W, S, WIDE>, g, t, st, L);
   return cudaErrorInvalidValue;
+}
+
+// the WIDE instantiation where a conv of the level averages more than
+// MAX_CONV buffers
+template <typename W, typename S>
+cudaError_t launch_level(int tm, int tn, int blocks, bool wide, cudaStream_t st,
+                         const Level<W, S>& L) {
+  return wide ? launch_tile<W, S, true>(tm, tn, blocks, st, L)
+              : launch_tile<W, S, false>(tm, tn, blocks, st, L);
 }
 
 template <typename W, typename S>
@@ -452,6 +480,7 @@ int run(const int* geo, const void* const* w, const void* const* st_in, void* co
     if (stamps != nullptr)
       L.stamps = (unsigned long long*)stamps + (size_t)l * (part_elems / PART) * 4;
     int blocks = 0;
+    bool wide = false;
     for (int i = 0; i < L.n_conv; ++i, p += NF) {
       const int* f = geo + p;
       Conv<W, S>& a = L.c[i];
@@ -462,6 +491,7 @@ int run(const int* geo, const void* const* w, const void* const* st_in, void* co
       a.x = buf(f[F_X]);
       a.x_stride = buf_elems;
       a.x_n = f[F_X_N];
+      wide |= a.x_n > MAX_CONV;
       a.silu = f[F_SILU];
       a.T = f[F_T];
       a.Cin = f[F_CIN];
@@ -481,7 +511,7 @@ int run(const int* geo, const void* const* w, const void* const* st_in, void* co
       a.per = f[F_PER];
       blocks += a.tiles_m * a.tiles_n * a.ksplit;
     }
-    const cudaError_t e = launch_level<W, S>(tm, tn, blocks, st, L);
+    const cudaError_t e = launch_level<W, S>(tm, tn, blocks, wide, st, L);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

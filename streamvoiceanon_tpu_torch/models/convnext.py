@@ -7,7 +7,7 @@ residual.  Only the depthwise conv carries state (its input tail).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,10 +46,15 @@ def convnext_block_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return x + h
 
 
-def convnext_encoder_apply(p: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
+def convnext_encoder_apply(p: Dict, cfg, x: torch.Tensor,
+                           g: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ConvNeXt encoder over a whole sequence: x (B, T, C_in) -> (B, T,
     dims[-1]); stem conv + LN, per stage a LN + 1x1 transition (stages > 0)
-    and its blocks, final LN."""
+    and its blocks, final LN.  `g` (B, 1, gin_channels), where given and
+    the tree has `g_in`, is added to the input through that 1x1 conv (the
+    tokenizer's distillation head)."""
+    if g is not None and "g_in" in p:
+        x = x + (g @ p["g_in"]["w"] + p["g_in"]["b"])
     for i in range(len(cfg.depths)):
         if i == 0:
             x = convops.causal_conv1d(x, p["stem_conv"]["w"], p["stem_conv"]["b"])

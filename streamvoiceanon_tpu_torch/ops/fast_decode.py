@@ -137,6 +137,22 @@ def unit_bytes(L: int, dim: int, inter: int) -> Tuple[int, ...]:
     return (L * dim * 16, L * dim * 16, L * 2 * dim * 16, L * inter * 16, dim * 16)
 
 
+def check_geometry(L: int, dim: int, n_head: int, head_dim: int, inter: int, V: int,
+                   nq: int, mdim: int, dtype) -> None:
+    """Raise on a geometry the kernel does not take."""
+    u = unit_cols(dtype)
+    cph = head_dim // u  # 16-byte chunks of a head's row
+    if (n_head * head_dim != dim or head_dim % u or cph > 32
+            or cph & (cph - 1) or (nq - 1) // (32 // max(cph, 1)) >= MAX_ROUNDS
+            or dim % u or inter % u or V % u
+            or not 1 <= nq <= MAX_NQ or V > MAX_VOCAB or max(dim, inter, mdim) > MAX_ROW
+            or not 1 <= L <= MAX_LAYERS
+            or smem_bytes(dim, inter, V, nq, head_dim) > MAX_SMEM):
+        raise ValueError("fast_decode: unsupported geometry "
+                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, V={V}, "
+                         f"nq={nq}, layers={L}, rows={mdim})")
+
+
 def smem_bytes(dim: int, inter: int, V: int, nq: int, head_dim: int) -> int:
     """Shared memory of one block besides its resident weights: a phase's
     input row and the RoPE table in float32, the ring, and the static
@@ -255,17 +271,9 @@ def _launch(fast_layers, fast_norm, fast_output, fast_embeddings, codebook_embed
     inter = w["w1"].shape[-1]
     V = fast_output.shape[-1]
     mdim = codebook_embeddings.shape[-1]
-    u = unit_cols(wd)
-    cph = head_dim // u  # 16-byte chunks of a head's row
-    if (three != 3 * dim or n_head * head_dim != dim or head_dim % u or cph > 32
-            or cph & (cph - 1) or (nq - 1) // (32 // max(cph, 1)) >= MAX_ROUNDS
-            or dim % u or inter % u or V % u
-            or not 1 <= nq <= MAX_NQ or V > MAX_VOCAB or max(dim, inter, mdim) > MAX_ROW
-            or not 1 <= L <= MAX_LAYERS
-            or smem_bytes(dim, inter, V, nq, head_dim) > MAX_SMEM):
-        raise ValueError("fast_decode: unsupported geometry "
-                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, V={V}, "
-                         f"nq={nq})")
+    if three != 3 * dim:
+        raise ValueError(f"fast_decode: wqkv must be (L, dim, 3 dim), got {three}")
+    check_geometry(L, dim, n_head, head_dim, inter, V, nq, mdim, wd)
     if (fast_embeddings.shape != (V, dim) or codebook_embeddings.shape != (nq * V, mdim)
             or hidden.numel() != dim):
         raise ValueError("fast_decode: embedding tables or hidden have the wrong shape")

@@ -24,8 +24,11 @@ dependency level, 37 at the published geometry for 97 convs, planned here
 conv_pre; per stage the upsample, then six rounds, round r running conv
 r % 2 of dilation r // 2 of all three ResBlock branches side by side (each
 branch with its own first-conv buffer and running residual); conv_post.
-The branch mean moves into its consumer: the next upsample and conv_post
-compute ((D_0 + D_1) + D_2) / 3 as they load a row, then SiLU.  A level's
+A round of more than MAX_CONV (4) branches runs as several launches.  The
+branch mean moves into its consumer: the next upsample and conv_post
+compute ((D_0 + D_1) + D_2) / 3 as they load a row, then SiLU (the first
+MAX_CONV D_b loaded ahead; any more read as the row is stored, by the
+kernel's WIDE instantiations, which only such levels launch).  A level's
 blocks walk its work list (per conv, per output tile, per K split), one
 implicit-GEMM conv tile each, full float32 on the CUDA cores (TF32 would
 miss the 1e-3 check), the dilated taps read straight from [tail; x], the
@@ -77,7 +80,7 @@ TILES = ((16, 64), (32, 64), (64, 64), (64, 32))  # (rows, columns) of a block's
 PART = 4096  # floats of split partial a block: the largest tile
 KC = 16  # K rows a chunk
 TARGET_BLOCKS = 396  # blocks a level: one wave, MIN_BLOCKS (3) a SM on 132 SMs
-MAX_CONV = 4  # convs a level: the ResBlock branches
+MAX_CONV = 4  # convs a launch; more ResBlock branches run a round in several launches
 HDR = 5  # header ints of `geo`
 LVL = 3  # ints before a level's records: conv count, tile rows, tile columns
 # one conv's record in `geo`, in order (the `Field` enum of the CUDA source)
@@ -331,12 +334,12 @@ def level_plan(cfg: HiFiGANConfig, T0: int) -> List[List[Dict[str, int]]]:
     branch; conv_post.  Buffers: A (conv_pre's output), B (the upsample's),
     per branch C_b (its first conv's output) and D_b (its running residual,
     at the end its output); a stage's input after the first, and conv_post's,
-    is the mean of the D_b.  Every conv's K is split by `_split`."""
+    is the mean of the D_b.  A round of more than MAX_CONV branches runs
+    as several launches of at most MAX_CONV convs each (its branches do not
+    read each other's buffers).  Every conv's K is split by `_split`."""
     n_stage = len(cfg.upsample_rates)
     nb = len(cfg.resblock_kernel_sizes)
     n_dil = len(cfg.resblock_dilation_sizes[0])
-    if nb > MAX_CONV:
-        raise NotImplementedError(f"the fused HiFiGAN head runs at most {MAX_CONV} branches")
     slots = res_slots(cfg)
     A, B = BUF_FIRST, BUF_FIRST + 1
     C = [BUF_FIRST + 2 + b for b in range(nb)]
@@ -367,7 +370,7 @@ def level_plan(cfg: HiFiGANConfig, T0: int) -> List[List[Dict[str, int]]]:
                     w=5 + 5 * i, w_off=wrow[si] * co, b=6 + 5 * i, b_off=si * co, bias_mod=co,
                     resid=-1 if cv == 0 else xr, out=C[br] if cv == 0 else D[br],
                     tail=2 + 2 * i, tail_off=off * co, rows=rows, rows_pad=_pad8(rows)))
-            levels.append(level)
+            levels += [level[j : j + MAX_CONV] for j in range(0, nb, MAX_CONV)]
     c_last = stage_channels(cfg)[-1][1]
     levels.append([_record(x=D[0], x_n=nb, silu=1, T=T, cin=c_last, k=k_post, n=1,
                          w=2 + 5 * n_stage, b=3 + 5 * n_stage, bias_mod=1, out=BUF_WAV,

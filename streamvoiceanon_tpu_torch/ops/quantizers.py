@@ -1,7 +1,8 @@
 """Quantizer ops, as `streamvoiceanon_tpu.ops.quantizers`.
 
 * LFQ / BSQ encode — content tokens are the sign pattern of a 13-d
-  projection, most significant bit first.
+  projection, most significant bit first — and the quantized latents of
+  the tokenizer's training forward (`lfq_quantize`).
 * FSQ encode and decode — the grouped residual finite scalar quantizer of
   the vocoder (8 groups x levels (8, 5, 5, 5) = 8 codebooks of 1000) and
   the speaker encoder's residual FSQ (levels 4^6).
@@ -32,6 +33,19 @@ def lfq_encode(params: Dict, x: torch.Tensor, codebook_bits: int) -> torch.Tenso
     h = _linear(params["project_in"], x).float()
     mask = _on(x.device, "bits", codebook_bits)
     return torch.sum((h > 0).to(torch.int32) * mask, dim=-1, dtype=torch.int32)
+
+
+def lfq_quantize(params: Dict, x: torch.Tensor,
+                 codebook_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval-mode forward: (the sign bits as +-1 / sqrt(bits) through
+    project_out (B, T, dim), the indices (B, T) int32).  The sign has no
+    straight-through gradient: nothing reaches x through it, as in the JAX
+    package."""
+    h = _linear(params["project_in"], x).float()
+    indices = torch.sum((h > 0).to(torch.int32) * _on(x.device, "bits", codebook_bits),
+                        dim=-1, dtype=torch.int32)
+    q = torch.where(h > 0, 1.0, -1.0) / float(np.sqrt(np.float32(codebook_bits)))
+    return _linear(params["project_out"], q), indices
 
 
 @functools.lru_cache(maxsize=64)

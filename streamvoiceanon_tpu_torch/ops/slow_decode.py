@@ -109,6 +109,18 @@ def slow_decode_step_plain(
     return h, torch.stack(k_rows), torch.stack(v_rows), token
 
 
+MAX_VOCAB = 16384  # the sampler's values a block
+
+
+def check_geometry(dim: int, n_head: int, head_dim: int, inter: int, V: int,
+                   cache_dtype) -> None:
+    """Raise on a geometry the kernel does not take."""
+    if (n_head * head_dim != dim or not row_lanes_ok(head_dim, cache_dtype)
+            or dim % 8 or inter % 8 or V % 8 or V > MAX_VOCAB):
+        raise ValueError("slow_decode_step: unsupported geometry "
+                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, V={V})")
+
+
 def slow_decode_step(
     layers: Dict, x2: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     pos: int, out_norm: torch.Tensor, out_head: torch.Tensor,
@@ -135,10 +147,9 @@ def slow_decode_step(
     inter = w["w1"].shape[-1]
     S = k_cache.shape[1]
     V = out_head.shape[-1]
-    if (three != 3 * dim or n_head * head_dim != dim or not row_lanes_ok(head_dim, cd)
-            or dim % 8 or inter % 8 or V % 8 or V > 16384):
-        raise ValueError("slow_decode_step: unsupported geometry "
-                         f"(dim={dim}, heads={n_head}x{head_dim}, inter={inter}, V={V})")
+    if three != 3 * dim:
+        raise ValueError(f"slow_decode_step: wqkv must be (L, dim, 3 dim), got {three}")
+    check_geometry(dim, n_head, head_dim, inter, V, cd)
     if k_cache.shape != (L, S, dim) or v_cache.shape != (L, S, dim):
         raise ValueError(f"slow_decode_step: caches must be (L, S, dim), got "
                          f"{tuple(k_cache.shape)} and {tuple(v_cache.shape)}")

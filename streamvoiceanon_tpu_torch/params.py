@@ -12,7 +12,11 @@ layers).  Conv weights change from the channels-last layouts of
   Linear           (in, out)           kept: the port computes x @ w
 
 Only the parts of the tokenizer tree that encoding uses are carried (the
-pre-quantization transformer, not the post one).  Layer lists are stacked once
+pre-quantization transformer, not the post one), unless the training
+forward asks for the post-quantization transformer and the distillation
+head as well (`with_head`).  The ASR side's trees (the w2v-BERT conformer,
+the ASR decoder, the two ASR_eval recognisers) come over with their
+layouts kept but for the conformer's convolutions.  Layer lists are stacked once
 here into one tree of (L, ...) arrays (the dual-AR layers and the windowed
 transformer's).  A `Converter` packs, once, the weights of the fused
 kernels its program set runs: with `HiFiGANConfig.use_pallas_stream` the
@@ -113,7 +117,7 @@ def _backbone(bb: Dict, device, dtype) -> Dict:
     for k, v in bb.items():
         if k == "stem_conv":
             backbone[k] = _conv(v, device, dtype)
-        elif k.startswith("mid_conv_"):  # a 1x1 conv: x @ w[0]
+        elif k.startswith("mid_conv_") or k == "g_in":  # a 1x1 conv: x @ w[0]
             backbone[k] = {"w": _t(_np(v["w"])[0], device, dtype),
                            "b": _t(v["b"], device, dtype)}
         elif k.startswith("stage_"):
@@ -128,13 +132,17 @@ def _downsample(stages, device, dtype):
             for s in stages]
 
 
-def tokenizer_params(p: Dict, device, dtype=torch.float32) -> Dict:
-    return {
+def tokenizer_params(p: Dict, device, dtype=torch.float32, with_head: bool = False) -> Dict:
+    out = {
         "backbone": _backbone(p["backbone"], device, dtype),
         "downsample": _downsample(p["downsample"], device, dtype),
         "pre_module": windowed_transformer_params(p["pre_module"], device, dtype),
         "lfq": tree(p["lfq"], device, dtype),
     }
+    if with_head:  # the training forward's parts
+        out["post_module"] = windowed_transformer_params(p["post_module"], device, dtype)
+        out["head"] = _backbone(p["head"], device, dtype)
+    return out
 
 
 def hifigan_params(h: Dict, device, dtype=torch.float32) -> Dict:
@@ -182,6 +190,35 @@ def arvc_params(p: Dict, device, dtype=torch.float32) -> Dict:
         out["wait4end"] = _t(p["decoder"]["wait4end"], device, dtype)
     out["model"] = dual_ar_params(model, device, dtype)
     return out
+
+
+def w2v_bert_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The w2v-BERT conformer (models/w2v_bert_native.py) from the JAX
+    package's numpy tree (`init_params`, or `convert` of either package):
+    the stacked depthwise conv (L, k, 1, H) in PyTorch's (L, H, 1, k),
+    every other leaf as it is."""
+    out = tree(p, device, dtype)
+    conv = out["layers"]["conv"]
+    conv["dw"] = conv["dw"].permute(0, 3, 2, 1).contiguous()
+    return out
+
+
+def asr_decoder_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The ASR decoder (models/asr_decoder.py), its layers stacked."""
+    return tree({**p, "layers": _stack(p["layers"])}, device, dtype)
+
+
+def asr_eval_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The compact CTC recogniser (evals/asr_eval_train.py): its two stride-2
+    convs in PyTorch's layout, the rest as it is."""
+    return {**tree({k: v for k, v in p.items() if k not in ("conv1", "conv2")}, device, dtype),
+            "conv1": _conv(p["conv1"], device, dtype), "conv2": _conv(p["conv2"], device, dtype)}
+
+
+def asr_eval_w2v_params(p: Dict, device, dtype=torch.float32) -> Dict:
+    """The conformer CTC recogniser (evals/asr_eval_w2v.py)."""
+    return {"encoder": w2v_bert_params(p["encoder"], device, dtype),
+            "ctc": tree(p["ctc"], device, dtype)}
 
 
 def _conv2d_weight(w) -> np.ndarray:

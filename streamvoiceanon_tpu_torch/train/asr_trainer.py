@@ -1,0 +1,136 @@
+"""The content-encoder (ASR) trainer on one device, as the JAX package's
+train/asr_trainer.py: the tokenizer (with its post-quantization transformer
+and distillation head) and the ASR decoder trained together on
+
+* the masked L1 distance of the head's prediction to the frozen w2v-BERT
+  teacher's layer-17 features, and
+* the ASR decoder's sequence-to-sequence CE over the quantized latents
+  and the Whisper-tokenized text,
+
+under `chain(clip_by_global_norm(10), adamw(lr, 0.9, 0.98, 1e-6, wd 0.01))`
+(`train/muon.py`'s optax pieces).  Two findings of the JAX package kept
+here as they are:
+
+* the clip is one global norm over both models together (the JAX code;
+  its comment says "per model");
+* the quantizer has no straight-through estimator (`lfq_quantize` takes
+  the sign), so neither loss reaches the backbone, the downsample,
+  `pre_module` or `lfq.project_in`: their gradients are exactly zero and
+  only AdamW's decoupled decay moves them.
+
+A batch either comes prepared (`teacher_feats`, `teacher_lens`,
+`latent_lens`) or straight from `train.data.batches` (`waves`,
+`wave_lens`, `frame_lens`, `text`, `text_lens`), the teacher's features
+then from `teacher_fn(waves, wave_lens) -> (feats, lens)`.  The
+parameters are updated in place on `device`, the card unless given.
+Sharding over several cards waits for the port of parallel/mesh.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from streamvoiceanon_tpu_torch import resolve_device
+from streamvoiceanon_tpu_torch.config import PipelineConfig, TokenizerConfig
+from streamvoiceanon_tpu_torch.models import asr_decoder, tokenizer
+from streamvoiceanon_tpu_torch.train import muon
+from streamvoiceanon_tpu_torch.train import step as step_mod
+from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
+
+KEEP = ("waves", "teacher_feats", "teacher_lens", "latent_lens", "text", "text_lens", "style")
+
+
+@dataclasses.dataclass
+class ASRTrainerConfig:
+    lr: float = 1e-4
+    clip: float = 10.0  # one global norm over both models (see the module note)
+    ce_weight: float = 1.0
+    l1_weight: float = 1.0
+
+
+def head_l1(head: Dict, cfg: TokenizerConfig, latents: torch.Tensor,
+            teacher_feats: torch.Tensor, teacher_lens: torch.Tensor,
+            g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The masked L1 distance of the head's prediction from the post-module
+    `latents` (`tokenizer.head_prediction`) to the teacher's features, over
+    the first `teacher_lens` frames of each row and every channel."""
+    pred = tokenizer.head_prediction(head, cfg, latents, teacher_feats.shape[1], g)
+    mask = (torch.arange(pred.shape[1], device=pred.device)[None, :]
+            < teacher_lens[:, None]).to(pred.dtype)[..., None]
+    return torch.sum(torch.abs(pred - teacher_feats) * mask) / torch.clamp(
+        torch.sum(mask) * pred.shape[-1], min=1.0)
+
+
+def loss_fn(params: Dict, cfg: PipelineConfig, acfg: asr_decoder.ASRDecoderConfig,
+            tcfg: ASRTrainerConfig, batch: Dict):
+    """(ce_weight * s2s + l1_weight * l1, {"s2s_loss", "l1_loss"}) of a
+    prepared batch of tensors on the parameters' device."""
+    zq, _ = tokenizer.quantized_latents(params["tokenizer"], cfg.tokenizer, batch["waves"])
+    l1 = head_l1(params["tokenizer"]["head"], cfg.tokenizer, zq, batch["teacher_feats"],
+                 batch["teacher_lens"], batch.get("style"))
+    s2s = asr_decoder.forward(params["asr"], acfg, zq, batch["latent_lens"], batch["text"],
+                              batch["text_lens"])
+    return tcfg.ce_weight * s2s + tcfg.l1_weight * l1, {"s2s_loss": s2s, "l1_loss": l1}
+
+
+class ASRTrainer:
+    def __init__(self, cfg: PipelineConfig, acfg: asr_decoder.ASRDecoderConfig,
+                 tcfg: ASRTrainerConfig, tokenizer_params: Dict, asr_params: Dict,
+                 teacher_fn: Optional[Callable] = None, device=None):
+        """`tokenizer_params` a port tree with its head
+        (`params.tokenizer_params(..., with_head=True)`), `asr_params` one of
+        `params.asr_decoder_params`; both are copied, in float32, to
+        `device`."""
+        self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
+        self.teacher_fn = teacher_fn
+        self.device = resolve_device(device)
+        self.params = step_mod.trainable(
+            tree_map(lambda t: t.to(self.device),
+                     {"tokenizer": tokenizer_params, "asr": asr_params}))
+        self.optimizer = muon.chain(
+            muon.clip_by_global_norm(tcfg.clip),
+            muon.adamw(tcfg.lr, b1=0.9, b2=0.98, eps=1e-6, weight_decay=0.01))
+        self.opt_state = self.optimizer.init(flatten(self.params))
+        self.step_count = 0
+
+    def prepare(self, batch: Dict) -> Dict:
+        """A host or dataloader batch -> the step's tensors on the device:
+        latent lengths default to the frame lengths, teacher features come
+        from `teacher_fn` where the batch has none."""
+        batch = dict(batch)
+        if "latent_lens" not in batch and "frame_lens" in batch:
+            batch["latent_lens"] = batch["frame_lens"]
+        if "teacher_feats" not in batch:
+            if self.teacher_fn is None:
+                raise ValueError("batch lacks teacher_feats and no teacher_fn was given")
+            batch["teacher_feats"], batch["teacher_lens"] = self.teacher_fn(
+                batch["waves"], batch["wave_lens"])
+
+        def dev(v):
+            t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+            return t.to(self.device, torch.float32) if t.is_floating_point() else t.to(self.device)
+
+        return {k: dev(v) for k, v in batch.items() if k in KEEP}
+
+    def step(self, batch: Dict) -> Dict:
+        """One optimizer step on a prepared batch: the loss, the two terms
+        and the raw gradients' global norm as device scalars, and the
+        gradients by path (`grads`)."""
+        loss, aux = loss_fn(self.params, self.cfg, self.acfg, self.tcfg, batch)
+        grads = step_mod.grads_of(loss, self.params)
+        flat = flatten(self.params)
+        with torch.no_grad():
+            updates, self.opt_state = self.optimizer.update(grads, self.opt_state, flat)
+            muon.apply_updates(flat, updates)
+        self.step_count += 1
+        return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach(),
+                "grad_norm": muon.global_norm(grads), "grads": grads}
+
+    def train_step(self, batch: Dict) -> Dict:
+        """One step on a prepared or dataloader batch; the losses as floats."""
+        aux = self.step(self.prepare(batch))
+        return {k: float(aux[k]) for k in ("s2s_loss", "l1_loss", "loss")}

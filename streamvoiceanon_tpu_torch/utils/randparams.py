@@ -86,6 +86,32 @@ def arvc_params_np(cfg: ARVCConfig, seed: int = 0, dtype=np.float32) -> Dict:
     }
 
 
+def asr_decoder_params_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
+    """The ASR decoder (models/asr_decoder.py `ASRDecoderConfig`): stacked
+    layers, N(0, 0.02^2) matrices and embeddings, unit norms, zero biases,
+    as the JAX package's `asr_decoder.init` draws them (not its draws)."""
+    r = _R(seed, dtype)
+    d, h, n = cfg.hidden_dim, cfg.intermediate_size, cfg.depth
+    kv = cfg.num_heads * cfg.head_dim
+    p = {
+        "layers": {
+            "wqkv": {"w": r.n(n, d, 3 * kv)},
+            "wo": {"w": r.n(n, kv, d)},
+            "attention_norm": {"w": r.ones(n, d)},
+            "ffn_norm": {"w": r.ones(n, d)},
+            "w1": {"w": r.n(n, d, h)},
+            "w3": {"w": r.n(n, d, h)},
+            "w2": {"w": r.n(n, h, d)},
+        },
+        "norm": {"w": r.ones(d)},
+        "text_embedding": r.n(cfg.n_vocab, d),
+        "prediction_head": {"w": r.n(d, cfg.n_vocab), "b": r.zeros(cfg.n_vocab)},
+    }
+    if cfg.in_channels != d:
+        p["audio_proj"] = {"w": r.n(cfg.in_channels, d), "b": r.zeros(d)}
+    return p
+
+
 def _convnext_block_np(r: _R, dim: int, k: int = 7, mlp: float = 4.0) -> Dict:
     h = int(mlp * dim)
     return {
@@ -119,7 +145,10 @@ def convnext_encoder_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
     return p
 
 
-def tokenizer_params_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
+def tokenizer_params_np(cfg, seed: int = 0, dtype=np.float32, with_head: bool = False) -> Dict:
+    """The tokenizer tree; with `with_head` also the ConvNeXt distillation
+    head of the training forward (`cfg.head`, its own seed + 2 stream, so
+    the other leaves are the same draws either way)."""
     r = _R(seed, dtype)
     t = cfg.transformer
     dims = cfg.quantizer.input_dim
@@ -159,6 +188,7 @@ def tokenizer_params_np(cfg, seed: int = 0, dtype=np.float32) -> Dict:
             "project_out": {"w": r.n(cfg.quantizer.codebook_bits, dims),
                             "b": r.zeros(dims)},
         },
+        **({"head": convnext_encoder_np(cfg.head, seed + 2, dtype)} if with_head else {}),
     }
 
 

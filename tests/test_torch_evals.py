@@ -581,14 +581,28 @@ def test_run_evaluation_matches_jax(tmp_path, monkeypatch, distance, backbone):
         assert f"---- {section} ----" in summary
 
 
-def test_cli_evaluate_refuses_to_train_an_asr_model(tmp_path, capsys):
+def test_cli_evaluate_refuses_to_train_an_asr_model(tmp_path, capsys, monkeypatch):
+    """Without cached hypotheses and without `--asr-train-dirs` the CLI
+    refuses; with them it trains the ASR_eval recogniser (here the compact
+    one, two steps) and scores both sets; with cached hypotheses it scores
+    those."""
+    import functools
+
+    from streamvoiceanon_tpu_torch.evals import asr_eval_train as taet
+
     _eval_dirs(tmp_path)
     base = ["evaluate", "--data-dir", str(tmp_path / "data"), "--results-dir",
             str(tmp_path / "fresh"), "--asr-datasets", "libri_dev_trials", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="asr_eval_train.py.*slice 16"):
-        cli.main(base + ["--asr-train-dirs", "libri_train"])
     with pytest.raises(SystemExit, match="not cached"):
         cli.main(base)
+    monkeypatch.setattr(taet, "train_asr_eval", functools.partial(
+        taet.train_asr_eval, cfg=taet.ASREvalConfig(steps=2, batch_size=4)))
+    trained = cli.main(base + ["--asr-train-dirs", "libri_train", "--asr-model", "compact",
+                               "--sample-rate", str(SR)])
+    assert [r["asr"] for r in trained["asr"]] == ["original", "anon"]
+    assert all(math.isfinite(r["WER"]) and r["WER"] >= 0 for r in trained["asr"])
+    for s in ("libri_dev_trials", "libri_dev_trials_anon"):
+        assert (tmp_path / "fresh" / "asr" / s / "text").exists()
     rows = cli.main(["evaluate", "--data-dir", str(tmp_path / "data"), "--results-dir",
                      str(tmp_path / "rt"), "--asr-datasets", "libri_dev_trials",
                      "--sample-rate", str(SR), "--device", "cpu"])

@@ -36,6 +36,7 @@ TINY_HEADS = {
         post_conv_kernel_size=5, hop_length=4),
     "converter_tiny": C.HiFiGANConfig(num_mels=32, upsample_initial_channel=32,
                                       pre_conv_kernel_size=7, post_conv_kernel_size=7),
+    **chip_smoke.branch_heads(),  # 5 and 6 branches: rounds in several launches
 }
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from streamvoiceanon_tpu_torch import config as C
 from streamvoiceanon_tpu_torch import params as P
 from streamvoiceanon_tpu_torch.ops import hifigan as headops
@@ -43,6 +44,9 @@ GEOMETRIES = {
     "split_heavy": C.HiFiGANConfig(
         num_mels=64, upsample_initial_channel=128, upsample_rates=(4, 2),
         upsample_kernel_sizes=(8, 4), pre_conv_kernel_size=7, post_conv_kernel_size=7),
+    # more branches than one launch runs: rounds in several launches, and a
+    # branch mean over more buffers than the kernel loads ahead
+    **chip_smoke.branch_heads(),
 }
 
 
@@ -213,6 +217,29 @@ def test_published_plan_has_37_levels_and_every_conv_once():
     assert means == [(8, 3), (15, 3), (22, 3), (29, 3), (36, 3)]
 
 
+@pytest.mark.parametrize("name", sorted(chip_smoke.branch_heads()))
+def test_rounds_of_more_branches_than_a_launch_runs(name):
+    """Each round of nb > MAX_CONV branches runs as ceil(nb / MAX_CONV)
+    launches of at most MAX_CONV convs, every branch in one of them, in
+    branch order; the next upsample and conv_post average all nb D_b."""
+    cfg = GEOMETRIES[name]
+    nb, n_dil = len(cfg.resblock_kernel_sizes), len(cfg.resblock_dilation_sizes[0])
+    assert nb > headops.MAX_CONV
+    per_round = [headops.MAX_CONV] * (nb // headops.MAX_CONV) + (
+        [nb % headops.MAX_CONV] if nb % headops.MAX_CONV else [])
+    levels = _convs(headops._geometry(cfg, 4))
+    stage = [1] + per_round * 2 * n_dil
+    assert [len(lv) for lv in levels] == [1] + stage * len(cfg.upsample_rates) + [1]
+    assert headops.device_launches(cfg, 4) == len(levels)
+    assert all(len(lv) <= headops.MAX_CONV for lv in levels)
+    d0 = levels[2][0]["out"] + nb  # D_0: after the C_b
+    means = [(i, c["x"], c["x_n"]) for i, lv in enumerate(levels) for c in lv if c["x_n"] > 1]
+    assert means == [(i, d0, nb) for i in range(len(stage) + 1, len(levels), len(stage))]
+    by_weight = [(c["w"], c["w_off"]) for lv in levels for c in lv]
+    n_conv = 2 + len(cfg.upsample_rates) * (1 + 2 * n_dil * nb)  # every conv once
+    assert len(by_weight) == len(set(by_weight)) == n_conv
+
+
 @pytest.mark.parametrize("name", [*sorted(GEOMETRIES), "published"])
 def test_splits_cover_every_chunk_once_and_fill_the_card(name):
     cfg = C.HiFiGANConfig() if name == "published" else GEOMETRIES[name]
@@ -268,7 +295,7 @@ def test_plan_constants_match_the_cuda_source():
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     for name in ("KC", "PART", "MAX_CONV", "HDR", "LVL"):
         assert int(const[name]) == getattr(headops, name), name
-    launched = re.findall(r"launch_pdl\(level_kernel<(\d+), (\d+), W, S>", src)
+    launched = re.findall(r"launch_pdl\(level_kernel<(\d+), (\d+), W, S, WIDE>", src)
     assert [(int(a), int(b)) for a, b in launched] == list(headops.TILES)
     enum = re.search(r"enum Field \{(.*?)\};", src, re.S).group(1)
     names = [n.strip() for n in enum.split(",")]

@@ -51,7 +51,10 @@ def test_port_sources_import_nothing_of_jax():
             "train/text.py", "utils/text.py", "utils/cn_norm.py", "runtime/convert.py",
             "cli.py", "evals/kaldi.py", "evals/privacy_metrics.py", "evals/plda.py",
             "evals/anonymize.py", "evals/asv_train.py", "evals/ecapa_asv.py", "evals/ser.py",
-            "evals/wer.py", "evals/plots.py", "evals/harness.py", "evals/tables.py"} <= sources
+            "evals/wer.py", "evals/plots.py", "evals/harness.py", "evals/tables.py",
+            "models/w2v_bert_native.py", "models/w2v_bert.py", "models/asr_decoder.py",
+            "train/asr_trainer.py", "ops/ctc.py", "evals/asr_eval_train.py",
+            "evals/asr_eval_w2v.py"} <= sources
     bad = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -116,6 +119,18 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         ecapa_asv.train_ecapa_asv([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ser.train_fold_classifiers(0, ser.SERHeadConfig(), {}, {}, {}, {}, [])
+    from streamvoiceanon_tpu_torch.evals import asr_eval_train, asr_eval_w2v
+    from streamvoiceanon_tpu_torch.models import asr_decoder
+    from streamvoiceanon_tpu_torch.models.w2v_bert import W2vBertTeacher
+    from streamvoiceanon_tpu_torch.train.asr_trainer import ASRTrainer, ASRTrainerConfig
+
+    for make in (lambda: asr_eval_train.train_asr_eval([], {}),
+                 lambda: asr_eval_w2v.train_asr_eval_w2v([], {}),
+                 lambda: ASRTrainer(cfg, asr_decoder.ASRDecoderConfig(), ASRTrainerConfig(),
+                                    {}, {}),
+                 lambda: W2vBertTeacher(native=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
