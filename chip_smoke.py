@@ -8,6 +8,7 @@
     python3 chip_smoke.py --eval               # phase 8 alone
     python3 chip_smoke.py --asr                # phase 9 alone
     python3 chip_smoke.py --head               # the published head's kernel ms
+    python3 chip_smoke.py --mesh               # phase 10 alone
 
 Phases, each reported on its own lines:
 
@@ -95,7 +96,12 @@ Phases, each reported on its own lines:
    prompt refills; every output must be finite, 2048 samples, silent
    only while the delay fills; the slow, fast and head launches must each
    equal the frames decoded and the ring-step launches the tokens encoded.
-   Reports p50/p90 chunk ms and a stage split.  Then, on the same weights,
+   Reports p50/p90 chunk ms and a stage split (each stage's calls
+   recorded into a `utils/profiling.StageTimers` after a device
+   synchronization), and `utils/roofline.chunk_roofline` of the session's
+   trees and live state: each stage's bytes and FLOPs, the chunk's and each
+   stage's bandwidth floor at the card's peaks, the synchronized stage sum
+   against that floor.  Then, on the same weights,
    three shorter sessions, each with its own launch check and stage
    split: `fast_slow_config` (the LM kernels only, 12 chunks), `all_five`
    (also the ConvNeXt front kernel, 16 chunks: front launches = tokens)
@@ -106,7 +112,8 @@ Phases, each reported on its own lines:
    launches a frame, no slow-step or fast-loop launch), each frame also
    from a copy of the state under `PipelineConfig()`'s plain flags; tokens
    and codes agree up to bf16 flips that logit noise explains (at least
-   90 %); frame ms p50/p90 of both;
+   90 %); frame ms p50/p90 of both; then one `tpu_optimized` chunk under
+   `utils/profiling.trace`, whose Chrome trace must be non-empty;
 5. the prompt side on phase 3's weights (`prompt_side`): a 10 s synthetic
    reference's speaker embeddings (seeded random CAM++ and speaker encoder
    at their default configs), content tokens and codes, timed;
@@ -182,9 +189,22 @@ Phases, each reported on its own lines:
    `w2v` on synthetic Kaldi directories: WER finite, the losses falling,
    seconds and peak memory of each; 5 steps of `W2VASRConfig.full()` at
    batch 8 x 256 frames: step ms, peak memory, finite losses;
+10. serving and training over a mesh (`mesh_phase`; alone:
+   `python3 chip_smoke.py --mesh`): two child processes share the card as
+   two ranks over gloo (`--mesh-rank`), at the published width of
+   `PipelineConfig()`'s LM (12 heads: 6 a rank), against one-process runs:
+   `BatchServer(n_model=2)` under per_head_decode, float32 LM, greedy, on
+   phase 6's four 4 s sources (at least 90 % of the codes equal, the wav
+   of rows whose codes all agree within 1e-5 of the largest sample, 12
+   decode-attention launches a frame on each rank and no slow-step or
+   fast-loop launch; ms and real-time factor), and
+   `ARVCTrainer(n_model_shards=2)`, two steps on phase 7's batches (step
+   1's losses and gradient norm within 1e-4 relative, the gathered
+   parameters after it within 1e-4; step ms); the collectives' calls and
+   host time of each; any failed rank fails the phase;
 4. a {"kernels": [...]} line (six kernels; each one's launches from the
-   session that runs it, plus phase 6's, 7's and 8's counted runs), the
-   card line, and as the last line {"ok": true, "device": {...}}.
+   session that runs it, plus phase 6's, 7's, 8's and 10's counted runs),
+   the card line, and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is nonzero and no result line is
 printed.  Without a CUDA card, or without the package beside this file, it
@@ -204,9 +224,17 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+try:
+    from streamvoiceanon_tpu_torch.utils.roofline import device_peaks
+except ImportError:  # the script alone, or no torch: main() says so and exits nonzero
+    device_peaks = None
+# the card's peaks, from the port's one table (utils/roofline.py): the bounds
+# are the H100 SXM's, the card of these runs
+H100 = device_peaks("NVIDIA H100 80GB HBM3") if device_peaks else None
+HBM_BYTES_PER_S = H100["hbm_bytes_s"] if H100 else None
+BF16_FLOPS = H100["bf16_flops"] if H100 else None
+FP32_FLOPS = H100["fp32_flops"] if H100 else None  # CUDA cores, outside the tensor cores
 RING_COUNTS = (0, 1, 511, 512, 1000, 3583, 3584)
 ATTN_POS = (0, 1000, 2046)
 ATTN_HEADS = (12, 48, 96)  # batch 1, 4 and 8 of the dual-AR's 12 heads
@@ -569,10 +597,7 @@ def time_kernels(cfg, device, pos: int, names=("slow", "fast")):
     for name, (b, fl) in (("slow", (bs, fs)), ("fast", (bf, ff))):
         if name not in names:
             continue
-        t_bytes = 1e3 * b / HBM_BYTES_PER_S
-        t_ops = 1e3 * fl / BF16_FLOPS
-        out[name].update(bound_ms=max(t_bytes, t_ops), bytes=b, flops=fl,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out[name].update(bound(b, fl, BF16_FLOPS))
     return out
 
 
@@ -2306,13 +2331,16 @@ def stream(sess, rng, n_chunks: int):
 def stage_split(sess, rng, n_chunks: int):
     """Device-synchronized medians over n_chunks of the three stages and of
     the background refill's history prefill (`refill_history`, run on the
-    chunks of the refill window), and how many chunks ran each."""
+    chunks of the refill window), and how many chunks ran each: each call
+    recorded into a `utils/profiling.StageTimers` by `timed`, which waits
+    for its outputs, after the device work before it has finished."""
     import torch
 
     from streamvoiceanon_tpu_torch.models import arvc, tokenizer_stream, vocoder
+    from streamvoiceanon_tpu_torch.utils.profiling import StageTimers
 
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-    acc = {"encode": [], "lm_decode": [], "vocode": [], "refill_history": []}
+    timers = StageTimers()
     originals = []
 
     def timed(mod, name, key):
@@ -2320,11 +2348,7 @@ def stage_split(sess, rng, n_chunks: int):
 
         def wrapper(*a, **kw):
             sync()
-            t0 = time.perf_counter()
-            r = fn(*a, **kw)
-            sync()
-            acc[key].append(1e3 * (time.perf_counter() - t0))
-            return r
+            return timers.timed(key, fn, *a, **kw)
 
         originals.append((mod, name, fn))
         setattr(mod, name, wrapper)
@@ -2338,7 +2362,31 @@ def stage_split(sess, rng, n_chunks: int):
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
-    return {k: (float(np.median(v)), len(v)) for k, v in acc.items() if v}
+    return {k: (v["p50_ms"], v["n"]) for k, v in timers.summary().items()}
+
+
+def roofline_line(name, sess, split) -> dict:
+    """`chunk_roofline` of a session's trees and live state against the
+    measured synchronized stage sum (encode + LM frame + vocode medians),
+    at the card's peaks; one line of it."""
+    from streamvoiceanon_tpu_torch.utils.roofline import chunk_roofline
+
+    measured = sum(split[k][0] for k in ("encode", "lm_decode", "vocode") if k in split)
+    cv = sess.cv
+    rf = chunk_roofline(sess.cfg, cv.tokenizer_params, cv.arvc_params, cv.vocoder_params,
+                        sess.fstate, compute_s=measured / 1e3, peaks=device_peaks(sess.device))
+    floor = ""
+    if "bw_floor_ms" in rf:  # a card in the peaks table
+        floor = (f"; bandwidth floor {rf['bw_floor_ms']} ms a chunk ("
+                 + ", ".join(f"{k} {v}" for k, v in rf["stage_bw_floor_ms"].items())
+                 + f" ms) at {rf['device_kind']}; the synchronized stage sum "
+                 f"{measured:.3f} ms = {measured / rf['bw_floor_ms']:.1f} x the floor, "
+                 f"{rf['pct_peak_bw']} % of the peak memory rate")
+    log(f"[3] {name} roofline: {rf['chunk_hbm_bytes']} B and {rf['chunk_flops']} flop a "
+        f"chunk (" + ", ".join(f"{k} {v['hbm_bytes']} B {v['flops']} flop" for k, v in
+                               rf["stages"].items())
+        + f"), {rf['achieved_gbps']} GB/s over the synchronized stage sum" + floor)
+    return rf
 
 
 def counts_of(slow=0, fast=0, ring=0, head=0, enc=0, attn=0):
@@ -2368,6 +2416,7 @@ def drive(name, sess, rng, n_chunks: int, expect, wrappers):
         f"max {max(times):.3f}; p50 / {FRAME_MS:.2f} ms = {p50 / FRAME_MS:.4f}")
     split = stage_split(sess, rng, 10)
     log(f"[3] {name} stage medians over 10 chunks (synchronized): " + fmt_split(split))
+    roofline_line(name, sess, split)
     return counts, sess.refill_count - r0
 
 
@@ -3986,6 +4035,351 @@ def asr_phase(device, wcfg=None, pcfg=None, acfg=None, full_cfg=None, steps: int
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serving and training over a mesh of two ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_SOURCES = 4
+MESH_FRAMES = 86  # phase 6's sources: 4 s
+MESH_REL = 1e-4  # the sharded trainer's step 1 against the one-process trainer's
+MESH_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Count the collectives `torch.distributed` runs in the block and the
+    host time of each kind, the device synchronized before each call so
+    that a call's time is its own (under gloo a CUDA tensor's collective
+    copies it to the host, reduces there and copies it back).  Yields
+    {kind: [calls, seconds]}."""
+    import torch
+    import torch.distributed as dist
+
+    acc = {k: [0, 0.0] for k in ("all_reduce", "all_gather", "broadcast")}
+    originals = {k: getattr(dist, k) for k in acc}
+
+    def clocked(kind, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[kind][0] += 1
+            acc[kind][1] += time.perf_counter() - t0
+            return out
+
+        return call
+
+    for k, fn in originals.items():
+        setattr(dist, k, clocked(k, fn))
+    try:
+        yield acc
+    finally:
+        for k, fn in originals.items():
+            setattr(dist, k, fn)
+
+
+def mesh_converter(device):
+    """Phase 3's converter trees (seeds 1, 2, 3) under per_head_decode at the
+    published width, the LM in float32."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+
+    cfg = C.per_head_decode(C.PipelineConfig())
+    return P.converter_from_numpy(cfg, rp.tokenizer_params_np(cfg.tokenizer, 1),
+                                  rp.vocoder_params_np(cfg.vocoder, 2),
+                                  rp.arvc_params_np(cfg.arvc, 3), device=device,
+                                  lm_dtype=torch.float32)
+
+
+def mesh_trees(cfg, device):
+    """Phase 7's trees: the LM with its input biases drawn, the frozen
+    extractors."""
+    from streamvoiceanon_tpu_torch import params as P
+    from streamvoiceanon_tpu_torch.utils import randparams as rp
+
+    return {"arvc_params": P.arvc_params(lm_tree_np(cfg), device),
+            "tokenizer_params": P.tokenizer_params(rp.tokenizer_params_np(cfg.tokenizer, 1),
+                                                   device),
+            "vocoder_params": P.vocoder_params(rp.vocoder_params_np(cfg.vocoder, 2), device),
+            "campplus_params": P.campplus_params(rp.campplus_params_np(cfg.campplus, 5),
+                                                 device),
+            "speaker_params": P.speaker_params(rp.speaker_encoder_params_np(cfg.speaker, 6),
+                                               device)}
+
+
+def mesh_batches():
+    """Phase 7's synthetic batches: 4 sources of 86 to 215 frames."""
+    from streamvoiceanon_tpu_torch.train import data
+
+    dcfg = data.DataConfig(batch_size=TRAIN_BATCH)
+    return data.batches(data.synthetic_dataset(dcfg, seed=71, frames=TRAIN_FRAMES,
+                                               with_text=False), dcfg)
+
+
+def serve_timed(server, args, sampling, wrappers=None):
+    """A warm-up `convert` of 8 frames, then (the wrappers' counts zeroed)
+    the timed one: (wav, codes of every row, seconds, the collectives'
+    calls and host seconds by kind)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch.models import arvc
+
+    server.convert(*(a[..., : 8 * SPF] if i == 0 else a for i, a in enumerate(args)),
+                   sampling=sampling, delay=2)
+    if wrappers:
+        zero(wrappers)
+    recorded, orig = [], arvc.generate
+
+    def generate(*a, **kw):
+        recorded.append(orig(*a, **kw))
+        return recorded[-1]
+
+    arvc.generate = generate
+    try:
+        with collective_clock() as acc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav = server.convert(*args, sampling=sampling, delay=2)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+    finally:
+        arvc.generate = orig
+    return wav, recorded[0], s, dict(acc)
+
+
+def step_timed(trainer, feats, delay):
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    aux = trainer._step(feats, delay)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in aux.items()}, ev[0].elapsed_time(ev[1])
+
+
+def mesh_rank_main(rank: int, port: int, tmp: str) -> int:
+    """`python3 chip_smoke.py --mesh-rank R PORT DIR`: rank R of phase 10's
+    two, sharing the card over gloo.  (a) `BatchServer(n_model=2)` of the
+    four sources in DIR/serve.npz: its wav, codes, seconds and this rank's
+    kernel launches; (b) `ARVCTrainer(n_model_shards=2)`, two steps on
+    phase 7's batches: step 1's losses and norm, its gathered parameters
+    against DIR/one/arvc.pt (the one-process trainer's after step 1), step
+    2's ms; each with the collectives' count and host time.  Writes
+    DIR/rank{R}.json (and rank 0 DIR/mesh_wav.npy, mesh_codes.npy)."""
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.parallel import mesh as M
+    from streamvoiceanon_tpu_torch.parallel.serving import BatchServer
+    from streamvoiceanon_tpu_torch.train.arvc_trainer import ARVCTrainer, TrainerConfig
+    from streamvoiceanon_tpu_torch.utils.tree import flatten
+
+    t0 = time.time()
+    backend = M.initialize_multihost(f"127.0.0.1:{port}", MESH_RANKS, rank, device="cuda")
+    if backend != "gloo":
+        raise AssertionError(f"rank {rank}: backend {backend}, gloo expected (two ranks on "
+                             "one card)")
+    device = torch.device("cuda", torch.cuda.current_device())
+    wrappers = kernel_wrappers()
+    out = {"rank": rank, "backend": backend}
+    # (a) serving
+    inp = np.load(Path(tmp) / "serve.npz")
+    args = [inp[k] for k in ("srcs", "tokens", "codes", "style", "timbre")]
+    server = BatchServer(mesh_converter(device), n_model=2)
+    out["mesh"] = [server.mesh.n_data, server.mesh.n_model]
+    out["setup_s"] = time.time() - t0
+    wav, codes, s, coll = serve_timed(server, args, C.SamplingConfig(greedy=True), wrappers)
+    out["serve"] = {"s": s, "counts": read_counts(wrappers), "collectives": coll,
+                    "finite": bool(np.all(np.isfinite(wav)))}
+    if rank == 0:
+        np.save(Path(tmp) / "mesh_wav.npy", wav)
+        np.save(Path(tmp) / "mesh_codes.npy", codes.cpu().numpy())
+    del server
+    torch.cuda.empty_cache()
+    # (b) training
+    cfg = C.PipelineConfig()
+    trainer = ARVCTrainer(cfg, TrainerConfig(log_dir=str(Path(tmp) / f"mesh{rank}"),
+                                             n_model_shards=2), **mesh_trees(cfg, device),
+                          device=device)
+    batches = mesh_batches()
+    batch = next(batches)
+    feats = trainer._features(batch["waves"], batch["frame_lens"])
+    delay = trainer.draw_delay()
+    with collective_clock() as acc1:
+        aux1, ms1 = step_timed(trainer, feats, delay)
+    whole = flatten(trainer.gathered_params())
+    ref = flatten(torch.load(Path(tmp) / "one" / "arvc.pt", map_location=device,
+                             weights_only=True))
+    err = max(float((whole[k] - ref[k]).abs().max() / ref[k].abs().max().clamp(min=1e-30))
+              for k in ref)
+    batch = next(batches)
+    feats = trainer._features(batch["waves"], batch["frame_lens"])
+    with collective_clock() as acc2:
+        aux2, ms2 = step_timed(trainer, feats, trainer.draw_delay())
+    out["train"] = {"delay": delay, "aux1": aux1, "ms1": ms1, "aux2": aux2, "ms2": ms2,
+                    "param_rel": err, "collectives1": dict(acc1), "collectives2": dict(acc2),
+                    "local_wqkv": list(trainer.state.params["model"]["layers"]["wqkv"]["w"]
+                                       .shape)}
+    with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_phase(device, wrappers):
+    """Phase 10: two ranks share the card over gloo (`--mesh-rank`, two
+    child processes), at the published width of `PipelineConfig()`'s LM (12
+    x 768, 12 heads: 6 a rank), against one-process runs made here first.
+    (a) `BatchServer(n_model=2)` on a 1 x 2 mesh under per_head_decode, the
+    LM in float32, greedy, on phase 6's four 4 s sources and a 10 s
+    reference's tokens and codes: at least 90 % of its codes equal to the
+    one-process `BatchServer(n_model=1)`'s, and the wav of every row whose
+    codes are all equal within 1e-5 of the largest sample (phase 6's
+    rules); each rank launches the decode attention 12 times a frame after
+    the first and no slow step or fast loop.  (b) `ARVCTrainer(
+    n_model_shards=2)`, two steps on phase 7's batches: step 1's two losses
+    and gradient norm within MESH_REL relative of the one-process
+    trainer's, the gathered parameters after it within MESH_REL of each
+    leaf's largest magnitude.  Any failed rank fails the phase.  Returns
+    the launches the ranks counted."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    from streamvoiceanon_tpu_torch import config as C
+    from streamvoiceanon_tpu_torch.parallel.serving import BatchServer
+    from streamvoiceanon_tpu_torch.runtime.pipeline import VoiceConverter
+    from streamvoiceanon_tpu_torch.train.arvc_trainer import ARVCTrainer, TrainerConfig
+
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    cv = mesh_converter(device)
+    vc = VoiceConverter(cv)
+    ref = synthetic_voice(10.0, 150.0, 51)
+    srcs = np.stack([synthetic_voice(MESH_FRAMES * SPF / 44100.0, 120.0 + 30 * i, 70 + i)[
+        : MESH_FRAMES * SPF] for i in range(MESH_SOURCES)])
+    tokens, codes = vc.content_tokens(ref[None]), vc.audio_codes(ref[None])
+    Tr = tokens.shape[1] // 8 * 8
+    rng = np.random.default_rng(52)
+    B = MESH_SOURCES
+    args = [srcs, np.repeat(tokens[:, :Tr].cpu().numpy(), B, 0),
+            np.repeat(codes[:, :, :Tr].cpu().numpy(), B, 0),
+            rng.standard_normal((B, cv.cfg.arvc.style_dim)).astype(np.float32),
+            rng.standard_normal((B, 32, cv.cfg.arvc.context_dim)).astype(np.float32)]
+    np.savez(Path(tmp.name) / "serve.npz", **dict(zip(
+        ("srcs", "tokens", "codes", "style", "timbre"), args)))
+    wav1, codes1, s1, _ = serve_timed(BatchServer(cv), args, C.SamplingConfig(greedy=True))
+    del cv, vc
+    # the one-process trainer's step 1 (checkpoint for the ranks) and step 2
+    cfg = C.PipelineConfig()
+    trainer = ARVCTrainer(cfg, TrainerConfig(log_dir=os.path.join(tmp.name, "one_run")),
+                          **mesh_trees(cfg, device), device=device)
+    batches = mesh_batches()
+    batch = next(batches)
+    feats = trainer._features(batch["waves"], batch["frame_lens"])
+    delay = trainer.draw_delay()
+    one1, one_ms1 = step_timed(trainer, feats, delay)
+    trainer.save_checkpoint(os.path.join(tmp.name, "one"), keep_last=0)
+    batch = next(batches)
+    feats = trainer._features(batch["waves"], batch["frame_lens"])
+    one2, one_ms2 = step_timed(trainer, feats, trainer.draw_delay())
+    del trainer, feats
+    torch.cuda.empty_cache()
+    log(f"[10] one process: BatchServer(n_model=1) {1e3 * s1:.1f} ms; trainer step 1 "
+        f"(delay {delay}) {one_ms1:.3f} ms, step 2 {one_ms2:.3f} ms; set-up "
+        f"{time.time() - t_phase:.1f} s")
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(r), str(port), tmp.name], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    failed = []
+    for r, p in enumerate(procs):
+        try:
+            text = p.communicate(timeout=MESH_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            text = p.communicate()[0]
+            failed.append(f"rank {r} timed out")
+        if p.returncode:
+            failed.append(f"rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    if failed:
+        raise AssertionError("phase 10: " + "; ".join(failed))
+    ranks = [json.loads((Path(tmp.name) / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    wall = time.time() - t0
+
+    # (a) serving
+    wav2 = np.load(Path(tmp.name) / "mesh_wav.npy")
+    codes2 = np.load(Path(tmp.name) / "mesh_codes.npy")
+    codes1 = codes1.cpu().numpy()
+    agree, total = int((codes1 == codes2).sum()), codes1.size
+    whole_rows = [b for b in range(B) if np.array_equal(codes1[b], codes2[b])]
+    err = max((same_within(wav2[b], wav1[b], f"phase 10 row {b}") for b in whole_rows),
+              default=0.0)
+    audio_s = B * MESH_FRAMES * SPF / 44100.0
+    want = counts_of(attn=cfg.arvc.decoder.n_layer * (MESH_FRAMES - 1))
+    for rk in ranks:
+        sv = rk["serve"]
+        coll = sv["collectives"]
+        log(f"[10] rank {rk['rank']} ({rk['backend']}, mesh {rk['mesh'][0]} x "
+            f"{rk['mesh'][1]}, set-up {rk['setup_s']:.1f} s): BatchServer(n_model=2) "
+            f"{1e3 * sv['s']:.1f} ms for {audio_s:.2f} s of audio, real-time factor "
+            f"{sv['s'] / audio_s:.4f} (one process {1e3 * s1:.1f} ms, {s1 / audio_s:.4f}); "
+            f"launches {sv['counts']}; collectives "
+            + ", ".join(f"{k} {n} calls {1e3 * t:.1f} ms" for k, (n, t) in coll.items() if n)
+            + f" ({100 * sum(t for _, t in coll.values()) / sv['s']:.1f} % of the call)")
+        if sv["counts"] != want or not sv["finite"]:
+            raise AssertionError(f"phase 10 rank {rk['rank']}: launches {sv['counts']}, "
+                                 f"expected {want}; finite {sv['finite']}")
+    log(f"[10] BatchServer(n_model=2) against n_model=1, float32 LM, greedy: codes equal "
+        f"{agree}/{total} (at least 90 % required), rows with every code equal "
+        f"{len(whole_rows)}/{B}, their wav max abs difference {err:.3e} (within 1e-5 of "
+        "the largest sample)")
+    if agree < 0.9 * total:
+        raise AssertionError(f"phase 10: {agree} of {total} codes agree")
+
+    # (b) training
+    for rk in ranks:
+        tr = rk["train"]
+        rel = {k: abs(tr["aux1"][k] - one1[k]) / abs(one1[k])
+               for k in ("codebook_loss", "token_loss", "grad_norm")}
+        c1, c2 = tr["collectives1"], tr["collectives2"]
+        log(f"[10] rank {rk['rank']} ARVCTrainer(n_model_shards=2), local wqkv "
+            f"{tr['local_wqkv']}: step 1 (delay {tr['delay']}) " + ", ".join(
+                f"{k} {tr['aux1'][k]:.6f} / {one1[k]:.6f} (rel {v:.2e})" for k, v in
+                rel.items())
+            + f"; parameters after it against the one-process trainer's: max rel "
+            f"{tr['param_rel']:.2e} (bound {MESH_REL}); step 1 {tr['ms1']:.3f} ms, step 2 "
+            f"{tr['ms2']:.3f} ms (one process {one_ms1:.3f}, {one_ms2:.3f}); step 2's "
+            "collectives " + ", ".join(f"{k} {n} calls {1e3 * t:.1f} ms" for k, (n, t) in
+                                     c2.items() if n)
+            + f" ({100 * 1e3 * sum(t for _, t in c2.values()) / tr['ms2']:.1f} % of the "
+            f"step); step 1's {sum(n for n, _ in c1.values())} calls "
+            f"{1e3 * sum(t for _, t in c1.values()):.1f} ms")
+        if tr["delay"] != delay or not max(rel.values()) <= MESH_REL or not (
+                tr["param_rel"] <= MESH_REL) or not np.isfinite(tr["aux2"]["loss"]):
+            raise AssertionError(f"phase 10 rank {rk['rank']}: step 1 {rel}, parameters "
+                                 f"{tr['param_rel']}, delay {tr['delay']} / {delay}, "
+                                 f"step 2 loss {tr['aux2']['loss']}")
+    tmp.cleanup()
+    log(f"[10] done in {time.time() - t_phase:.1f} s (ranks {wall:.1f} s)")
+    return {k: sum(rk["serve"]["counts"][k] for rk in ranks) for k in wrappers}
+
+
 def fmt_split(split) -> str:
     return ", ".join(f"{k} {v:.3f} ms ({n} runs)" for k, (v, n) in split.items())
 
@@ -4192,6 +4586,7 @@ def main() -> int:
         f"{bst['plain_ms'][0]:.3f} p90 {bst['plain_ms'][1]:.3f}; tokens and codes agree "
         f"{bst['agree']}/{bst['compared']}, largest logit difference "
         f"{bst['logit_diff']:.4g}; flips: {flips}")
+    trace_chunk(sess, rng)
 
     # ---- phase 5: the prompt side on phase 3's weights
     ps = prompt_side(cv, device, scfg, wrappers)
@@ -4214,6 +4609,10 @@ def main() -> int:
     asr_phase(device)
     if any(read_counts(wrappers).values()):
         raise AssertionError(f"phase 9 launched kernels: {read_counts(wrappers)}")
+
+    # ---- phase 10: serving and training over two ranks sharing the card
+    for key, n in mesh_phase(device, wrappers).items():
+        launches[key] += n
 
     # ---- phase 4
     kernels = []
@@ -4238,6 +4637,71 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def busy_ms(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def trace_chunk(sess, rng) -> None:
+    """One chunk of `sess` under `utils/profiling.trace`: the Chrome trace it
+    writes must be non-empty; its CUDA kernel events, their device time
+    and the card's busy share of the chunk's span (from its first event's
+    start to its last event's end) are reported."""
+    import tempfile
+
+    from streamvoiceanon_tpu_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory() as td:
+        with trace(td):
+            stream(sess, rng, 1)
+        path = Path(td) / "trace.json"
+        size = path.stat().st_size if path.exists() else 0
+        events = json.loads(path.read_text()).get("traceEvents", []) if size else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    timed = [e for e in events if e.get("ph") == "X"]
+    span = (max(e["ts"] + e.get("dur", 0) for e in timed) - min(e["ts"] for e in timed)
+            if timed else 0.0)
+    busy = busy_ms((e["ts"], e["ts"] + e.get("dur", 0)) for e in kernels)
+    log(f"[3] one tpu_optimized chunk under utils/profiling.trace: trace.json {size} B, "
+        f"{len(events)} events, {len(kernels)} CUDA kernel events, "
+        f"{sum(e.get('dur', 0) for e in kernels) / 1e3:.3f} ms of kernel time; the card "
+        f"busy {busy / 1e3:.3f} ms of the chunk's {span / 1e3:.3f} ms span "
+        f"({100 * busy / max(span, 1e-9):.1f} %, idle {100 - 100 * busy / max(span, 1e-9):.1f} "
+        "%, under the profiler)")
+    if not size or not events:
+        raise AssertionError("utils/profiling.trace wrote no trace")
+
+
+def mesh_main() -> int:
+    """`python3 chip_smoke.py --mesh`: phase 10 alone, after building the
+    kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from streamvoiceanon_tpu_torch import resolve_device
+    from streamvoiceanon_tpu_torch.ops import _build
+
+    device = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.time()
+    _build.build_all()
+    log(f"[1] build: {time.time() - t0:.1f} s")
+    counts = mesh_phase(device, kernel_wrappers())
+    log(card)
+    print(json.dumps({"mesh": counts}), flush=True)
     return 0
 
 
@@ -4425,6 +4889,10 @@ if __name__ == "__main__":
         sys.exit(asr_main())
     if argv == ["--head"]:
         sys.exit(head_main())
+    if argv == ["--mesh"]:
+        sys.exit(mesh_main())
+    if argv[:1] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(argv[1]), int(argv[2]), argv[3]))
     if argv[:1] == ["--session"]:
         sys.exit(session_main(argv[1], int(argv[3]) if argv[2:3] == ["--chunks"] else 40))
     sys.exit(main())

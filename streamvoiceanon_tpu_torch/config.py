@@ -167,6 +167,10 @@ class DualARConfig:
                 "use_pallas_slow_decode and use_pallas_decode imply different "
                 "KV-cache layouts; enable at most one")
 
+    @property
+    def max_delay(self) -> int:
+        return max(self.delay) if isinstance(self.delay, tuple) else int(self.delay)
+
 
 @dataclass(frozen=True)
 class ARVCConfig:

@@ -21,6 +21,7 @@ import torch
 
 from streamvoiceanon_tpu_torch.config import ARVCConfig, SamplingConfig, replace
 from streamvoiceanon_tpu_torch.models import dual_ar
+from streamvoiceanon_tpu_torch.parallel.mesh import model_shards
 
 
 def prepare_params(raw: Dict) -> Dict:
@@ -64,15 +65,17 @@ def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def forward_train(params: Dict, cfg: ARVCConfig, content_tokens: torch.Tensor,
                   base_target: torch.Tensor, target: torch.Tensor, x_lens: torch.Tensor,
                   style_vec: torch.Tensor, timbre: torch.Tensor, delay: int,
-                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  remat: bool = True, data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training losses (codebook CE, semantic CE) of content tokens (B, T),
     semantic targets (B, T), codebook targets (B, nq, T), valid frames x_lens
     (B,) and the speaker condition; `delay` is drawn by the trainer per
-    batch.  See `dual_ar.forward_train`."""
+    batch.  See `dual_ar.forward_train` (`data_group`: the rows are this
+    rank's share of a batch split over 'data')."""
     return dual_ar.forward_train(
         params["model"], cfg.decoder, embed_content(params, content_tokens),
         spk_condition(params, style_vec, timbre), base_target, target, x_lens,
-        params["wait4start"], params["wait4end"], delay, remat=remat)
+        params["wait4start"], params["wait4end"], delay, remat=remat,
+        data_group=data_group)
 
 
 class ARVCState(NamedTuple):
@@ -104,7 +107,8 @@ def prefill_prompt(params: Dict, cfg: ARVCConfig, ref_content: torch.Tensor,
     if delay == 0:
         emb_seq = emb_seq[:, :-1]  # the last audio slot waits in audio_cache
     state = dual_ar.init_state(dcfg, batch=B, cache_dtype=cache_dtype,
-                               device=ref_content.device)
+                               device=ref_content.device,
+                               n_model=model_shards(params["model"]["layers"]))
     state, _ = dual_ar.prefill(params["model"], dcfg, state, emb_seq)
     return ARVCState(state, audio_cache, tail)
 
@@ -211,7 +215,8 @@ def generate(params: Dict, cfg: ARVCConfig, ref_content: torch.Tensor,
             return noise[f]
         return tuple(gumbel(s, generator, dev) for s in shapes)
 
-    state = dual_ar.init_state(dcfg, batch=B, cache_dtype=cache_dtype, device=dev)
+    state = dual_ar.init_state(dcfg, batch=B, cache_dtype=cache_dtype, device=dev,
+                               n_model=model_shards(params["model"]["layers"]))
     state, last = dual_ar.prefill(params["model"], dcfg, state, emb_seq)
     codes, audio_emb, _ = dual_ar.fast_codes(
         params["model"], dcfg, dual_ar._project_fast(params["model"], last),

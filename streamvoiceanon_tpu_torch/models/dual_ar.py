@@ -34,6 +34,18 @@ a live cache between the two layouts.
 recomputed in the backward pass under `remat`) in plain PyTorch, as the
 JAX package runs its training forward outside any kernel.
 
+Every program here also runs on a model-sharded tree (`parallel/mesh.py`):
+a stack that is a `ShardedStack` holds this rank's H / n_model query heads,
+n_local / n_model KV heads and its slice of the FFN, its KV cache holds
+only those heads (`init_state(..., n_model=)`), and each block all-reduces
+twice over the model group.  The batch-1 slow-step and fast-loop kernels
+take a whole stack, so `slow_kernel_runs` and `fast_kernel_runs` say no on
+a sharded one (the JAX package's XLA gathers the weights there instead) and
+the layer loop runs, on the decode-attention kernel over the rank's B x H /
+n_model heads under `use_pallas_decode`.  Every rank of a model group must
+draw the same sampling noise (equally seeded generators), so that the
+shards never part.
+
 The cache position is a host integer: the position trajectory of a
 stream is known in advance, so no device value is read back to schedule.
 `prefill` returns new caches; `decode_frame` writes its two fresh rows
@@ -58,6 +70,9 @@ from streamvoiceanon_tpu_torch.ops.norm import compute_dtype, rms_norm
 from streamvoiceanon_tpu_torch.ops.rope import apply_rope
 from streamvoiceanon_tpu_torch.ops.sampling import sample_token
 from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
+from streamvoiceanon_tpu_torch.parallel.mesh import (all_reduce_sum, copy_to_model,
+                                                     model_group, model_shards,
+                                                     reduce_from_model)
 
 
 def embed_codes(params: Dict, cfg: DualARConfig, codes: torch.Tensor) -> torch.Tensor:
@@ -65,6 +80,11 @@ def embed_codes(params: Dict, cfg: DualARConfig, codes: torch.Tensor) -> torch.T
     offsets = torch.arange(cfg.num_codebooks, device=codes.device) * cfg.codebook_size
     emb = params["codebook_embeddings"][codes.long() + offsets[None, :, None]]
     return torch.sum(emb, dim=1)
+
+
+def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Semantic-token embedding (the `embeddings` table)."""
+    return params["embeddings"][tokens.long()]
 
 
 class DecodeState(NamedTuple):
@@ -77,13 +97,15 @@ class DecodeState(NamedTuple):
 
 
 def init_state(cfg: DualARConfig, batch: int = 1, cache_dtype=torch.bfloat16,
-               device=None) -> DecodeState:
+               device=None, n_model: int = 1) -> DecodeState:
     """Zeroed caches in the layout cfg's flags ask for; bf16 by default, as
-    the JAX package's `init_state`."""
+    the JAX package's `init_state`.  On a stack split `n_model` ways the
+    cache holds the rank's n_local_heads / n_model heads."""
+    nl = cfg.n_local_heads // n_model
     if cfg.use_pallas_slow_decode:
-        shape = (cfg.n_layer, batch, cfg.max_seq_len, cfg.n_local_heads * cfg.head_dim)
+        shape = (cfg.n_layer, batch, cfg.max_seq_len, nl * cfg.head_dim)
     else:
-        shape = (cfg.n_layer, batch, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
+        shape = (cfg.n_layer, batch, nl, cfg.max_seq_len, cfg.head_dim)
     return DecodeState(torch.zeros(shape, dtype=cache_dtype, device=device),
                        torch.zeros(shape, dtype=cache_dtype, device=device), 0,
                        torch.zeros((), dtype=torch.int32, device=device))
@@ -119,10 +141,15 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
     (per-head cache, MHA) runs the attention on the decode-attention kernel
     over the B x n_head heads of the cache viewed as (B * n_head, S,
     head_dim), with the JAX package's `use_pallas` rounding: q, k, v in the
-    cache dtype, the output rounded to it."""
+    cache dtype, the output rounded to it.
+
+    On a `ShardedStack` the head counts given are the whole stack's; the
+    block runs the rank's share of them and all-reduces the outputs of wo
+    and w2 over the model group."""
     B, T, dim = x.shape
-    H, nl, hd = n_head, n_local, head_dim
-    h = rms_norm(x, lp["attention_norm"]["w"][l], norm_eps)
+    n, group = model_shards(lp), model_group(lp)
+    H, nl, hd = n_head // n, n_local // n, head_dim
+    h = copy_to_model(rms_norm(x, lp["attention_norm"]["w"][l], norm_eps), group)
     qkv = h @ lp["wqkv"]["w"][l]
     q, k, v = torch.split(qkv, [H * hd, nl * hd, nl * hd], dim=-1)
     q = apply_rope(q.reshape(B, T, H, hd), freqs)
@@ -161,10 +188,10 @@ def _attn_block(lp: Dict, l: int, x: torch.Tensor, freqs: torch.Tensor,
         mask = col[None, :] <= (pos + torch.arange(T, device=x.device))[:, None]
         w = torch.softmax(torch.where(mask, scores, float("-inf")), dim=-1).to(x.dtype)
         out = (w @ v_all).transpose(1, 2).reshape(B, T, H * hd)
-    x = x + out @ lp["wo"]["w"][l]
-    f = rms_norm(x, lp["ffn_norm"]["w"][l], norm_eps)
+    x = x + reduce_from_model(out @ lp["wo"]["w"][l], group)
+    f = copy_to_model(rms_norm(x, lp["ffn_norm"]["w"][l], norm_eps), group)
     f = (F.silu(f @ lp["w1"]["w"][l]) * (f @ lp["w3"]["w"][l])) @ lp["w2"]["w"][l]
-    return x + f
+    return x + reduce_from_model(f, group)
 
 
 def run_layers(stacked: Dict, x: torch.Tensor, freqs: torch.Tensor, n_head: int,
@@ -227,8 +254,8 @@ def _token_logits(params: Dict, cfg: DualARConfig, hidden: torch.Tensor) -> torc
 def forward_train(params: Dict, cfg: DualARConfig, condition: torch.Tensor,
                   spk_condition: torch.Tensor, base_target: torch.Tensor,
                   target: torch.Tensor, x_lens: torch.Tensor, wait4start: torch.Tensor,
-                  wait4end: torch.Tensor, delay: int,
-                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  wait4end: torch.Tensor, delay: int, remat: bool = True,
+                  data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training losses (codebook CE, semantic-token CE), as the JAX
     package's `forward_train`.
 
@@ -242,7 +269,12 @@ def forward_train(params: Dict, cfg: DualARConfig, condition: torch.Tensor,
     2 t, gathered before the vocabulary projection; the fast stack is
     teacher-forced over the nq codebooks of every frame.  Both CEs are in
     float32 (float64 for a float64 tree) and masked by x_lens.  No dropout,
-    as in the JAX package."""
+    as in the JAX package.
+
+    With `data_group` (this rank holding its rows of a batch split over
+    'data') the CEs are normalised by the valid frames of the whole batch,
+    counted over the group, so that the ranks' losses and gradients sum to
+    the whole batch's."""
     B, T, D = condition.shape
     S = spk_condition.shape[1]
     nq = cfg.num_codebooks
@@ -267,7 +299,7 @@ def forward_train(params: Dict, cfg: DualARConfig, condition: torch.Tensor,
     frame_pos = S + 2 * delay + 2 * torch.arange(T, device=dev)
     latents = x[:, frame_pos]  # (B, T, dim)
     valid = (torch.arange(T, device=dev)[None, :] < x_lens[:, None]).float()
-    n_valid = valid.sum()
+    n_valid = all_reduce_sum(valid.sum(), data_group)
 
     def ce(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
         logits = logits.to(compute_dtype(logits.dtype))
@@ -291,15 +323,17 @@ def forward_train(params: Dict, cfg: DualARConfig, condition: torch.Tensor,
 
 def slow_kernel_runs(params: Dict, cfg: DualARConfig, batch: int) -> bool:
     """Whether `decode_frame` runs the slow step on its kernel: the JAX
-    package's condition (flat cache, batch 1, MHA, untied head, no bias)."""
+    package's condition (flat cache, batch 1, MHA, untied head, no bias),
+    on a whole stack (the kernel takes every layer's heads)."""
     return (cfg.use_pallas_slow_decode and batch == 1 and cfg.n_local_heads == cfg.n_head
-            and not cfg.tie_word_embeddings
+            and not cfg.tie_word_embeddings and model_shards(params.get("layers")) == 1
             and "b" not in params.get("output", {"b": None}))
 
 
-def fast_kernel_runs(cfg: DualARConfig, batch: int) -> bool:
-    """Whether `decode_frame` runs the codebook loop on its kernel."""
-    return (cfg.use_pallas_fast_decode and batch == 1
+def fast_kernel_runs(cfg: DualARConfig, batch: int, n_model: int = 1) -> bool:
+    """Whether `decode_frame` runs the codebook loop on its kernel: batch
+    1, MHA, the fast stack whole (`n_model` 1)."""
+    return (cfg.use_pallas_fast_decode and batch == 1 and n_model == 1
             and cfg.fast_n_local_heads == cfg.fast_n_head)
 
 
@@ -317,7 +351,7 @@ def frame_noise_shapes(params: Dict, cfg: DualARConfig, sampling: SamplingConfig
     if not slow_kernel_runs(params, cfg, batch):
         sem = _window(sampling, sem)
     fast = cfg.codebook_size
-    if not fast_kernel_runs(cfg, batch):
+    if not fast_kernel_runs(cfg, batch, model_shards(params.get("fast_layers"))):
         fast = _window(sampling, fast)
     return (batch, sem), (batch, cfg.num_codebooks, fast)
 
@@ -338,7 +372,8 @@ def _fast_loop(params: Dict, cfg: DualARConfig, hidden: torch.Tensor,
     B = hidden.shape[0]
     nq = cfg.num_codebooks
     heads = _fast_heads(cfg)
-    shape = (B, cfg.fast_n_local_heads, nq, cfg.fast_head_dim)
+    shape = (B, cfg.fast_n_local_heads // model_shards(params["fast_layers"]), nq,
+             cfg.fast_head_dim)
     kc = [torch.zeros(shape, dtype=hidden.dtype, device=hidden.device)
           for _ in range(cfg.n_fast_layer)]
     vc = [torch.zeros_like(c) for c in kc]
@@ -416,7 +451,7 @@ def fast_codes(params: Dict, cfg: DualARConfig, hidden: torch.Tensor,
     the fast-loop kernel at batch 1 under its flag, the plain loop
     otherwise.  Returns (codes (B, nq), the next frame's summed codebook
     embedding (B, 1, dim), the loop's nucleus truncations)."""
-    if fast_kernel_runs(cfg, hidden.shape[0]):
+    if fast_kernel_runs(cfg, hidden.shape[0], model_shards(params["fast_layers"])):
         codes, aemb = fast_decode(
             params["fast_layers"], params["fast_norm"]["w"], params["fast_output"]["w"],
             params["fast_embeddings"], params["codebook_embeddings"], hidden[:, 0],

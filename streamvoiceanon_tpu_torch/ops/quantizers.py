@@ -1,8 +1,11 @@
 """Quantizer ops, as `streamvoiceanon_tpu.ops.quantizers`.
 
 * LFQ / BSQ encode — content tokens are the sign pattern of a 13-d
-  projection, most significant bit first — and the quantized latents of
-  the tokenizer's training forward (`lfq_quantize`).
+  projection, most significant bit first — the codes of given indices
+  (`lfq_indices_to_codes`), the quantized latents of the tokenizer's
+  training forward (`lfq_quantize`) and the BSQ soft entropy loss, whose
+  codebook usage is averaged over a `torch.distributed` group under data
+  parallelism (`lfq_soft_entropy_loss`).
 * FSQ encode and decode — the grouped residual finite scalar quantizer of
   the vocoder (8 groups x levels (8, 5, 5, 5) = 8 codebooks of 1000) and
   the speaker encoder's residual FSQ (levels 4^6).
@@ -15,6 +18,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from streamvoiceanon_tpu_torch.parallel.mesh import all_reduce_mean
 
 
 def _linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +51,41 @@ def lfq_quantize(params: Dict, x: torch.Tensor,
                         dim=-1, dtype=torch.int32)
     q = torch.where(h > 0, 1.0, -1.0) / float(np.sqrt(np.float32(codebook_bits)))
     return _linear(params["project_out"], q), indices
+
+
+def lfq_indices_to_codes(params: Dict, indices: torch.Tensor,
+                         codebook_bits: int) -> torch.Tensor:
+    """indices (B, T) -> codes (B, T, dim): the +-1 bits, l2-normalised,
+    through project_out."""
+    bits = (indices.to(torch.int32)[..., None] & _on(indices.device, "bits", codebook_bits)) != 0
+    codes = bits.float() * 2.0 - 1.0
+    codes = codes / float(np.sqrt(np.float32(codebook_bits)))
+    return _linear(params["project_out"], codes)
+
+
+def lfq_soft_entropy_loss(h: torch.Tensor, tau: float = 1.0, gamma: float = 1.0,
+                          group=None) -> torch.Tensor:
+    """The BSQ soft entropy aux loss of pre-sign latents h (N, L): the mean
+    per-sample entropy of each bit minus gamma times the entropy of the
+    mean bit usage.
+
+    With a `torch.distributed` process group (data parallelism) the usage
+    distribution is averaged over the group's ranks before its entropy
+    (`all_reduce`, then / the group's size, as the JAX package's `pmean`
+    over `axis_name`), through an autograd-aware reduction; the
+    per-sample term stays local, its global mean coming from the gradients'
+    average."""
+    L = h.shape[-1]
+    corners = torch.tensor([-1.0, 1.0], dtype=h.dtype, device=h.device) / float(
+        np.sqrt(np.float32(L)))
+    prob = torch.sigmoid(2.0 * tau * corners[None, None, :] * h[..., None])
+    ent_per_dim = -torch.sum(prob * torch.log(torch.clamp(prob, min=1e-20)), dim=-1)
+    term1 = torch.mean(ent_per_dim)
+    expected = torch.mean(prob.reshape(-1, L, 2), dim=0)
+    expected = all_reduce_mean(expected, group)
+    term2 = torch.mean(-torch.sum(expected * torch.log(torch.clamp(expected, min=1e-20)),
+                                  dim=-1))
+    return term1 - gamma * term2
 
 
 @functools.lru_cache(maxsize=64)

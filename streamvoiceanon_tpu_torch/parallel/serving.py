@@ -1,18 +1,22 @@
-"""Batched offline conversion on one card, as the JAX package's
+"""Batched offline conversion over a mesh of ranks, as the JAX package's
 parallel/serving.py: utterances are bucketed by frame length, padded to the
 bucket, and the whole [tokenize -> generate -> vocode] pipeline runs on the
 batch.  `arvc.generate` sizes the KV cache to the bucket
-(`auto_cache_rows`); at batch > 1 the slow-step and fast-loop kernels (batch
-1 only) give way to the plain layers, on the decode-attention kernel over
-B x H heads under `per_head_decode`.
+(`auto_cache_rows`); at batch > 1, and on a model-sharded LM, the slow-step
+and fast-loop kernels (batch 1, whole stacks) give way to the layer loop,
+on the decode-attention kernel over the rank's B x H / n_model heads under
+`per_head_decode`.
 
-The JAX package spreads the batch over a device mesh; the port's mesh
-(`parallel/mesh.py`, several cards through `torch.distributed`) is still
-to come, so `BatchServer` serves on the converter's one device.
+Over the mesh (`parallel/mesh.py`): the batch is split over 'data' when it
+divides by n_data and replicated otherwise, the LM is split over 'model',
+the tokenizer and vocoder are replicated, and the converted batch is
+gathered back to every rank.  With no process group the mesh is this
+process's one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 
 from streamvoiceanon_tpu_torch.config import SamplingConfig
 from streamvoiceanon_tpu_torch.models import arvc, tokenizer, vocoder
+from streamvoiceanon_tpu_torch.parallel import mesh as meshlib
 from streamvoiceanon_tpu_torch.params import Converter
 
 
@@ -54,14 +59,21 @@ def _convert_batch(cv: Converter, src_wavs: torch.Tensor, ref_tokens: torch.Tens
 
 
 class BatchServer:
-    """Batched conversion server on the converter's device."""
+    """Data- and model-parallel conversion server over a mesh (the mesh of
+    the initialized process group with `n_model` ranks to a model group
+    unless given; one device without a process group).  Every rank calls
+    `convert` with the same whole batch and gets the whole result."""
 
-    def __init__(self, converter: Converter, n_model: int = 1):
-        if n_model != 1:
-            raise NotImplementedError(
-                "BatchServer: sharding the LM over several cards waits for the port of "
-                "parallel/mesh.py")
+    def __init__(self, converter: Converter, n_model: int = 1,
+                 mesh: Optional[meshlib.Mesh] = None):
+        self.mesh = mesh if mesh is not None else meshlib.make_mesh(
+            n_model=n_model, device=converter.device)
         self.cv = converter
+        if self.mesh.n_model > 1:
+            arvc_params = converter.arvc_params
+            self.cv = dataclasses.replace(converter, arvc_params=meshlib.shard_params(
+                arvc_params, self.mesh, meshlib.dual_ar_param_specs(arvc_params),
+                converter.cfg.arvc))
 
     def convert(self, src_wavs: np.ndarray, ref_tokens, ref_codes, style, timbre, *,
                 sampling: SamplingConfig = SamplingConfig(), delay: int = 2,
@@ -69,11 +81,17 @@ class BatchServer:
         """src_wavs (B, T), one bucket padded to one length; the prompt of
         each row.  `cache_dtype` is the KV cache's: float32 equals the
         unbatched generate, bf16 halves the cache reads.  Sampled runs draw
-        their noise from a generator seeded with `seed`."""
-        dev = self.cv.device
-        on = lambda x, dt=None: torch.as_tensor(np.asarray(x), dtype=dt).to(dev)
+        their noise from a generator seeded with `seed` (the same on every
+        rank, so that the ranks of a model group draw alike)."""
+        dev = self.mesh.device
+        tree = [torch.as_tensor(np.asarray(x), dtype=dt) for x, dt in (
+            (src_wavs, torch.float32), (ref_tokens, None), (ref_codes, None),
+            (style, torch.float32), (timbre, torch.float32))]
+        split = self.mesh.data_group is not None and len(tree[0]) % self.mesh.n_data == 0
+        tree = (meshlib.shard_batch(tree, self.mesh) if split
+                else meshlib.replicate(tree, self.mesh))
         gen = None if sampling.greedy else torch.Generator(device=dev).manual_seed(seed)
-        wav = _convert_batch(self.cv, on(src_wavs, torch.float32), on(ref_tokens),
-                             on(ref_codes), on(style, torch.float32),
-                             on(timbre, torch.float32), sampling, delay, cache_dtype, gen)
+        wav = _convert_batch(self.cv, *tree, sampling, delay, cache_dtype, gen)
+        if split:
+            wav = meshlib.all_gather_cat(wav, self.mesh.data_group, 0)
         return wav.float().cpu().numpy()

@@ -19,6 +19,14 @@ semantics:
 * `scale_by_schedule`: the whole update, decay included, times
   schedule(count), count from 0.
 
+On a model-sharded tree (`parallel/mesh.py`) each rank holds its slice of
+the sharded leaves, named by a `Shards` (path -> split axis, and the model
+group): `global_norm` counts a sharded leaf's squares once over the group
+and a replicated leaf's once, and Muon orthogonalises the whole matrix
+(the slices all-gathered, Newton-Schulz on every rank, the rank's slice
+kept), as the JAX package's update of a sharded leaf computes.  The
+element-wise transformations need nothing more.
+
 A transformation is a pair (init, update): init(params) gives its state,
 update(grads, state, params) gives (updates, state').  Step counters are
 host integers, so no device value is read back to schedule; the scalars
@@ -27,14 +35,24 @@ that follow from them are computed in float32, as the JAX package's.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from streamvoiceanon_tpu_torch.parallel.mesh import all_gather_cat, all_reduce_sum
 from streamvoiceanon_tpu_torch.utils.tree import Path
 
 Flat = Dict[Path, torch.Tensor]
+
+
+class Shards(NamedTuple):
+    """The model-sharded leaves of a flat tree: path -> the axis split over
+    'model', and the model group."""
+
+    axes: Dict[Path, int]
+    group: Any
 
 
 class GradientTransformation(NamedTuple):
@@ -66,14 +84,20 @@ def newton_schulz5(g: torch.Tensor, steps: int = 6) -> torch.Tensor:
     return x.to(g.dtype)
 
 
-def global_norm(tree: Flat) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tree.values()))
+def global_norm(tree: Flat, shards: Optional[Shards] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares; a
+    model-sharded leaf's summed over its group."""
+    if shards is None or shards.group is None:
+        return torch.sqrt(sum(torch.sum(t * t) for t in tree.values()))
+    whole = sum(torch.sum(t * t) for k, t in tree.items() if k not in shards.axes)
+    split = sum(torch.sum(t * t) for k, t in tree.items() if k in shards.axes)
+    return torch.sqrt(whole + all_reduce_sum(split, shards.group))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float,
+                        shards: Optional[Shards] = None) -> GradientTransformation:
     def update(grads, state, params=None):
-        norm = global_norm(grads)
+        norm = global_norm(grads, shards)
         keep = norm < max_norm
         return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}, state
 
@@ -105,11 +129,14 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 def muon(lr: float = 1e-4, weight_decay: float = 0.01, momentum: float = 0.95,
-         nesterov: bool = True, ns_steps: int = 6) -> GradientTransformation:
+         nesterov: bool = True, ns_steps: int = 6,
+         shards: Optional[Shards] = None) -> GradientTransformation:
     """Muon for >= 2-D leaves: for a (..., m, n) leaf the update is -lr *
     sqrt(max(m, n)) * NS5(momentum grad) - lr * wd * p.  Stacked layers (L,
     m, n) are L batched matrices; leaves of more than 3 dims are
-    orthogonalised with their trailing dims flattened."""
+    orthogonalised with their trailing dims flattened.  A model-sharded
+    leaf is orthogonalised whole (`Shards`)."""
+    axes = shards.axes if shards is not None and shards.group is not None else {}
 
     def init(params):
         return {"momentum": {k: torch.zeros_like(p) for k, p in params.items()}}
@@ -120,12 +147,17 @@ def muon(lr: float = 1e-4, weight_decay: float = 0.01, momentum: float = 0.95,
             b = state["momentum"][k]
             mom[k] = b + (1.0 - momentum) * (g - b)
             eff = g + momentum * (mom[k] - g) if nesterov else mom[k]
+            if k in axes:  # the whole matrix, its columns in rank order
+                eff = all_gather_cat(eff, shards.group, axes[k])
             shape = eff.shape
             if eff.ndim > 3:
                 eff = eff.reshape(shape[0], shape[1], -1)
             o = newton_schulz5(eff, ns_steps)
             scale = float(max(o.shape[-2], o.shape[-1])) ** 0.5
             upd = -lr * scale * o.reshape(shape)
+            if k in axes:
+                size = g.shape[axes[k]]
+                upd = upd.narrow(axes[k], dist.get_rank(shards.group) * size, size)
             if weight_decay > 0:
                 upd = upd - lr * weight_decay * params[k]
             out[k] = upd
@@ -175,11 +207,11 @@ def multi_transform(transforms: Dict[str, GradientTransformation],
 
 def muon_adamw(lr: float = 1e-4, adamw_betas=(0.9, 0.98), adamw_eps: float = 1e-6,
                muon_weight_decay: float = 0.01, adamw_weight_decay: float = 0.01,
-               exclude_keys: Sequence[str] = EXCLUDE_KEYS,
-               ns_steps: int = 6) -> GradientTransformation:
+               exclude_keys: Sequence[str] = EXCLUDE_KEYS, ns_steps: int = 6,
+               shards: Optional[Shards] = None) -> GradientTransformation:
     """Muon for the leaves `is_muon_param` admits, AdamW for the rest."""
     return multi_transform(
-        {"muon": muon(lr, muon_weight_decay, ns_steps=ns_steps),
+        {"muon": muon(lr, muon_weight_decay, ns_steps=ns_steps, shards=shards),
          "adamw": adamw(lr, b1=adamw_betas[0], b2=adamw_betas[1], eps=adamw_eps,
                         weight_decay=adamw_weight_decay)},
         lambda params: labels(params, exclude_keys))

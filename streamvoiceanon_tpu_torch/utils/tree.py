@@ -4,6 +4,7 @@ JAX package's leaf order)."""
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Tuple, Union
 
 import torch
@@ -25,9 +26,15 @@ def flatten(tree, prefix: Path = ()) -> Dict[Path, torch.Tensor]:
 
 
 def tree_map(fn: Callable, tree):
-    """fn over every leaf of a nested dict/list tree."""
+    """fn over every leaf of a nested dict/list tree.  A dict subclass keeps
+    its class and attributes (a model-sharded stack its group)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        if type(tree) is dict:
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        out = copy.copy(tree)
+        for k, v in tree.items():
+            out[k] = tree_map(fn, v)
+        return out
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)

@@ -54,7 +54,8 @@ def test_port_sources_import_nothing_of_jax():
             "evals/wer.py", "evals/plots.py", "evals/harness.py", "evals/tables.py",
             "models/w2v_bert_native.py", "models/w2v_bert.py", "models/asr_decoder.py",
             "train/asr_trainer.py", "ops/ctc.py", "evals/asr_eval_train.py",
-            "evals/asr_eval_w2v.py"} <= sources
+            "evals/asr_eval_w2v.py", "parallel/mesh.py", "utils/profiling.py",
+            "utils/roofline.py"} <= sources
     bad = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -80,7 +81,10 @@ def test_importing_every_port_module_loads_no_jax():
         "        'streamvoiceanon_tpu_torch.train.arvc_trainer',\n"
         "        'streamvoiceanon_tpu_torch.runtime.convert',\n"
         "        'streamvoiceanon_tpu_torch.evals.harness',\n"
-        "        'streamvoiceanon_tpu_torch.evals.plots'} <= set(sys.modules)\n"
+        "        'streamvoiceanon_tpu_torch.evals.plots',\n"
+        "        'streamvoiceanon_tpu_torch.parallel.mesh',\n"
+        "        'streamvoiceanon_tpu_torch.utils.profiling',\n"
+        "        'streamvoiceanon_tpu_torch.utils.roofline'} <= set(sys.modules)\n"
         "assert 'matplotlib' not in sys.modules\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -107,6 +111,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         ARVCTrainer(cfg, TrainerConfig(log_dir=str(tmp_path)), {}, {}, {})
     from streamvoiceanon_tpu_torch import cli
     from streamvoiceanon_tpu_torch.evals import ecapa_asv, ser
+    from streamvoiceanon_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.initialize_multihost("127.0.0.1:1", 2, 0)
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.build_converter(str(tmp_path))

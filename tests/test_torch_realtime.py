@@ -10,7 +10,8 @@ server, on the CPU:
   mirroring tests/test_live.py, the sequential sessions held against the
   JAX package's;
 * `bucket_by_frames` and `BatchServer.convert` against JAX's `BatchServer`
-  on one CPU device.
+  on one CPU device, and `BatchServer(n_model=2)` in two gloo processes
+  against the one-process server.
 
 Waveforms within atol = rtol = 1e-4 and 1e-4 of the largest sample of
 JAX's; engine against sequential session within 1e-5 of the largest
@@ -315,7 +316,7 @@ def test_bucketing():
         bucket_by_frames([100], [8, 32, 64])
 
 
-def test_batch_server_matches_jax(tiny):
+def test_batch_server_matches_jax(tiny, tmp_path):
     jcv, tcv, art = tiny
     B, Ts = 3, 6
     src = source(61, Ts, batch=B)
@@ -329,5 +330,17 @@ def test_batch_server_matches_jax(tiny):
     single = server.convert(src[:1], tokens[:1], codes[:1], style[:1], timbre[:1],
                             sampling=TGREEDY, delay=2)
     np.testing.assert_allclose(single[0], got[0], atol=2e-4)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # n_model=2 runs: two gloo processes (a 1 x 2 mesh) serve the same wav
+    from torch_mesh import run_ranks
+    from torch_pairs import trees
+
+    inputs = {"batch_server": {
+        "trees": {k: v for k, v in trees().items() if k in ("tokenizer_params",
+                                                             "vocoder_params", "arvc_params")},
+        "sampling": TGREEDY, "cfgs": {"plain": tcv.cfg}, "batches": (B,),
+        "args": (src, tokens, codes, style, timbre)}}
+    for res in run_ranks(["batch_server"], 2, inputs, tmp_path):
+        np.testing.assert_allclose(res["batch_server"]["plain", B]["wav"], got, atol=1e-4,
+                                   rtol=1e-4)
+    with pytest.raises(ValueError, match="initialized process group"):
         BatchServer(tcv, n_model=2)

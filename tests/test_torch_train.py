@@ -21,7 +21,9 @@ norm weights show the Muon routing in both stacks):
 * the trainer's `_features` against the JAX `ARVCTrainer._features`:
   tokens and codes exact, style and timbre within `torch_pairs.TOL`;
 * checkpoints, the trainer's rotation, `resume_latest`, `train` and the
-  audio sample; the data pipeline's outputs against the JAX module's.
+  audio sample; the data pipeline's outputs against the JAX module's;
+* `n_model_shards=2` in two gloo processes against the one-process
+  trainer, three steps.
 """
 
 import functools
@@ -409,8 +411,36 @@ def flatten_any(tree, prefix=()):
 
 
 def test_model_shards_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        port_trainer(tmp_path, n_model_shards=2)
+    """`n_model_shards=2` no longer raises: in two gloo processes (a 1 x 2
+    mesh, tests/torch_mesh.py) three steps match the one-process trainer's
+    (losses and norms within 1e-5, the gathered checkpoint within 1e-5 of
+    each leaf's largest magnitude); one process without a process group
+    cannot split the LM and says so."""
+    from torch_mesh import run_ranks
+
+    t = trees()
+    delays = [0, 3, 0]
+    inputs = {"trainer_step": {
+        "cfg": TCFG2, "trees": {"arvc_params": arvc_np(), "tokenizer_params":
+                                t["tokenizer_params"], "vocoder_params": t["vocoder_params"]},
+        "batch": batch_np(), "delays": delays, "tcfg": {}, "log_dir": str(tmp_path / "mesh")}}
+    ranks = run_ranks(["trainer_step"], 2, inputs, tmp_path / "ranks")
+    trainer = port_trainer(tmp_path / "one")
+    want = [{k: float(v) for k, v in trainer._step(port_batch(), d).items()} for d in delays]
+    for r, res in enumerate(ranks):
+        out = res["trainer_step"]
+        assert out["mesh"] == (1, 2, r)
+        for got, w in zip(out["aux"], want):
+            for k in w:
+                np.testing.assert_allclose(got[k], w[k], rtol=1e-5, err_msg=k)
+    saved = flatten(torch.load(f"{ranks[0]['trainer_step']['ckpt']}/arvc.pt",
+                               weights_only=True))
+    for k, p in flatten(trainer.state.params).items():
+        w = p.detach()
+        torch.testing.assert_close(saved[k], w, rtol=0, atol=1e-5 * float(w.abs().max()),
+                                   msg=str(k))
+    with pytest.raises(ValueError, match="initialized process group"):
+        port_trainer(tmp_path / "alone", n_model_shards=2)
 
 
 # ---------------------------------------------------------------------------
