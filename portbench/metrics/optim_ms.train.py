@@ -1,0 +1,6 @@
+"""The synchronized optim span of a training step, median over the steps."""
+from portbench import readers
+
+
+def read(r):
+    return readers.span_median(r, "optim")
