@@ -4729,16 +4729,10 @@ def breakdown_main() -> int:
 
 
 def kernel_wrappers():
-    """The six kernel wrappers by key; each counts its launches."""
-    from streamvoiceanon_tpu_torch.ops.attention import decode_attention
-    from streamvoiceanon_tpu_torch.ops.convnext_enc import encoder_front_step
-    from streamvoiceanon_tpu_torch.ops.fast_decode import fast_decode
-    from streamvoiceanon_tpu_torch.ops.hifigan import head_stream_step
-    from streamvoiceanon_tpu_torch.ops.slow_decode import slow_decode_step
-    from streamvoiceanon_tpu_torch.ops.wt_stream import wt_stream_step
+    """The six kernel wrappers by key (`streamvoiceanon_tpu_torch.ops`)."""
+    from streamvoiceanon_tpu_torch.ops import kernel_wrappers as wrappers
 
-    return {"slow": slow_decode_step, "fast": fast_decode, "ring": wt_stream_step,
-            "head": head_stream_step, "enc": encoder_front_step, "attn": decode_attention}
+    return wrappers()
 
 
 def training_main() -> int:

@@ -22,6 +22,7 @@ import torch
 from streamvoiceanon_tpu_torch.config import ARVCConfig, SamplingConfig, replace
 from streamvoiceanon_tpu_torch.models import dual_ar
 from streamvoiceanon_tpu_torch.parallel.mesh import model_shards
+from streamvoiceanon_tpu_torch.utils.profiling import span
 
 
 def prepare_params(raw: Dict) -> Dict:
@@ -183,7 +184,9 @@ def generate(params: Dict, cfg: ARVCConfig, ref_content: torch.Tensor,
     first frame's semantic entry is unused), or else draw it on the device
     from `generator`.  With `auto_cache_rows` the KV cache is sized to the
     utterance as the JAX package sizes it; an utterance that needs more
-    rows than `max_seq_len` raises, as without it."""
+    rows than `max_seq_len` raises, as without it.  With the recorder on
+    (`utils/profiling.tracing`) the prefill with the first frame's codes is
+    the span `prefill` and each further frame the span `frame`."""
     dcfg = cfg.decoder
     B, Ts = src_content.shape
     dev = src_content.device
@@ -215,17 +218,19 @@ def generate(params: Dict, cfg: ARVCConfig, ref_content: torch.Tensor,
             return noise[f]
         return tuple(gumbel(s, generator, dev) for s in shapes)
 
-    state = dual_ar.init_state(dcfg, batch=B, cache_dtype=cache_dtype, device=dev,
-                               n_model=model_shards(params["model"]["layers"]))
-    state, last = dual_ar.prefill(params["model"], dcfg, state, emb_seq)
-    codes, audio_emb, _ = dual_ar.fast_codes(
-        params["model"], dcfg, dual_ar._project_fast(params["model"], last),
-        frame_noise(0)[1], sampling)
+    with span("prefill"):
+        state = dual_ar.init_state(dcfg, batch=B, cache_dtype=cache_dtype, device=dev,
+                                   n_model=model_shards(params["model"]["layers"]))
+        state, last = dual_ar.prefill(params["model"], dcfg, state, emb_seq)
+        codes, audio_emb, _ = dual_ar.fast_codes(
+            params["model"], dcfg, dual_ar._project_fast(params["model"], last),
+            frame_noise(0)[1], sampling)
     frames = [codes]
     for f in range(1, Ts):
-        emb2 = torch.cat([audio_emb.to(remaining.dtype), remaining[:, f : f + 1]], dim=1)
-        state, _, codes, audio_emb = dual_ar.decode_frame(
-            params["model"], dcfg, state, emb2, sampling, *frame_noise(f))
+        with span("frame"):
+            emb2 = torch.cat([audio_emb.to(remaining.dtype), remaining[:, f : f + 1]], dim=1)
+            state, _, codes, audio_emb = dual_ar.decode_frame(
+                params["model"], dcfg, state, emb2, sampling, *frame_noise(f))
         frames.append(codes)
     return torch.stack(frames, dim=-1)
 

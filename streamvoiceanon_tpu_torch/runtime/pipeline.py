@@ -24,6 +24,7 @@ from streamvoiceanon_tpu_torch.config import SamplingConfig
 from streamvoiceanon_tpu_torch.models import (arvc, campplus, speaker_encoder, tokenizer,
                                               vocoder)
 from streamvoiceanon_tpu_torch.params import Converter
+from streamvoiceanon_tpu_torch.utils.profiling import span
 
 
 def apply_noise_mixing(x: torch.Tensor, alpha: float,
@@ -123,31 +124,41 @@ class VoiceConverter:
         source tokens padded to a multiple of 16, then `arvc.generate` and
         the vocoder.  Returns the waveform at 44.1 kHz (numpy).  `spk_noise`
         and `lm_noise` are the random draws of `speaker_embeddings` and
-        `arvc.generate`, else drawn from `generator`."""
-        if isinstance(ref_wavs, np.ndarray) or torch.is_tensor(ref_wavs):
-            ref_wavs = [ref_wavs]
-        if ref_crop_lengths is not None:
-            crops = ([ref_crop_lengths] * len(ref_wavs) if np.isscalar(ref_crop_lengths)
-                     else ref_crop_lengths)
-            ref_wavs = [w[: int(c * self.cfg.sample_rate)] if c is not None else w
-                        for w, c in zip(ref_wavs, crops)]
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        sampling = sampling or self.cfg.sampling
-        style, timbre = self.speaker_embeddings(ref_wavs, alpha, generator, collate, spk_noise)
-        ref_cat = torch.cat([self._tensor(w) for w in ref_wavs])[None]
-        ref_codes = self.audio_codes(ref_cat)
-        ref_tokens = self.content_tokens(ref_cat)
-        src_tokens = self.content_tokens(self._tensor(src_wav)[None])
-        Tr = max(ref_tokens.shape[1] // 8 * 8, min(8, ref_tokens.shape[1]))
-        ref_tokens, ref_codes = ref_tokens[:, :Tr], ref_codes[:, :, :Tr]
-        Ts = src_tokens.shape[1]
-        src_tokens = torch.nn.functional.pad(src_tokens, (0, -(-Ts // 16) * 16 - Ts))
-        ap = self.converter.arvc_params
-        codes = arvc.generate(ap, self.cfg.arvc, ref_tokens, ref_codes,
-                              src_tokens, style.to(ap["embedding"].dtype),
-                              timbre.to(ap["embedding"].dtype), sampling, delay,
-                              generator=generator, noise=lm_noise)
-        wav = vocoder.decode(self.converter.float32_trees["vocoder_params"], self.cfg.vocoder,
-                             codes)
-        return wav[0, : Ts * self.cfg.samples_per_frame].float().cpu().numpy()
+        `arvc.generate`, else drawn from `generator`.  With the recorder on
+        (`utils/profiling.tracing`) the call is the span `infer`, its stages
+        the spans `prompt`, `encode`, `generate`, `vocode` and `to_host`
+        (the host's one wait on the card)."""
+        with span("infer"):
+            if isinstance(ref_wavs, np.ndarray) or torch.is_tensor(ref_wavs):
+                ref_wavs = [ref_wavs]
+            if ref_crop_lengths is not None:
+                crops = ([ref_crop_lengths] * len(ref_wavs) if np.isscalar(ref_crop_lengths)
+                         else ref_crop_lengths)
+                ref_wavs = [w[: int(c * self.cfg.sample_rate)] if c is not None else w
+                            for w, c in zip(ref_wavs, crops)]
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            sampling = sampling or self.cfg.sampling
+            with span("prompt"):
+                style, timbre = self.speaker_embeddings(ref_wavs, alpha, generator, collate,
+                                                        spk_noise)
+                ref_cat = torch.cat([self._tensor(w) for w in ref_wavs])[None]
+                ref_codes = self.audio_codes(ref_cat)
+                ref_tokens = self.content_tokens(ref_cat)
+            with span("encode"):
+                src_tokens = self.content_tokens(self._tensor(src_wav)[None])
+            Tr = max(ref_tokens.shape[1] // 8 * 8, min(8, ref_tokens.shape[1]))
+            ref_tokens, ref_codes = ref_tokens[:, :Tr], ref_codes[:, :, :Tr]
+            Ts = src_tokens.shape[1]
+            src_tokens = torch.nn.functional.pad(src_tokens, (0, -(-Ts // 16) * 16 - Ts))
+            ap = self.converter.arvc_params
+            with span("generate"):
+                codes = arvc.generate(ap, self.cfg.arvc, ref_tokens, ref_codes,
+                                      src_tokens, style.to(ap["embedding"].dtype),
+                                      timbre.to(ap["embedding"].dtype), sampling, delay,
+                                      generator=generator, noise=lm_noise)
+            with span("vocode"):
+                wav = vocoder.decode(self.converter.float32_trees["vocoder_params"],
+                                     self.cfg.vocoder, codes)
+            with span("to_host"):
+                return wav[0, : Ts * self.cfg.samples_per_frame].float().cpu().numpy()

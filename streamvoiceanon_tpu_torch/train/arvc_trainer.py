@@ -46,6 +46,7 @@ from streamvoiceanon_tpu_torch.parallel import mesh as meshlib
 from streamvoiceanon_tpu_torch.runtime.checkpoints import PACKED, load_tree, save_tree
 from streamvoiceanon_tpu_torch.train import muon
 from streamvoiceanon_tpu_torch.train import step as step_mod
+from streamvoiceanon_tpu_torch.utils.profiling import span
 from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
 
 
@@ -167,10 +168,16 @@ class ARVCTrainer:
         return int(delays[int(torch.randint(len(delays), (), generator=self.generator))])
 
     def train_step(self, batch: Dict) -> Dict:
-        """One step on a host batch with `waves` (B, T) and `frame_lens`."""
-        feats = self._features(batch["waves"], batch["frame_lens"])
-        aux = self._step(feats, self.draw_delay())
-        return {k: float(v) for k, v in aux.items()}
+        """One step on a host batch with `waves` (B, T) and `frame_lens`:
+        with the recorder on (`utils/profiling.tracing`) the span
+        `train_step`, its stages `features`, `step.train_step`'s `fwd_bwd`
+        and `optim`, and `sync` (the host's wait for the aux scalars)."""
+        with span("train_step"):
+            with span("features"):
+                feats = self._features(batch["waves"], batch["frame_lens"])
+            aux = self._step(feats, self.draw_delay())
+            with span("sync"):
+                return {k: float(v) for k, v in aux.items()}
 
     # ------------------------------------------------------------------
 

@@ -23,6 +23,7 @@ from streamvoiceanon_tpu_torch.config import ARVCConfig
 from streamvoiceanon_tpu_torch.models import arvc
 from streamvoiceanon_tpu_torch.parallel.mesh import all_reduce_sum
 from streamvoiceanon_tpu_torch.train import muon
+from streamvoiceanon_tpu_torch.utils.profiling import span
 from streamvoiceanon_tpu_torch.utils.tree import flatten, tree_map
 
 
@@ -90,14 +91,18 @@ def train_step(state: TrainState, batch: Dict, cfg: ARVCConfig,
     and `grad_norm`, the global norm of the raw gradients before clipping,
     as device scalars (no host synchronisation).  On a mesh `batch` is this
     rank's rows, `data_group` the ranks its gradients are summed over and
-    `shards` the model-sharded leaves; aux is the whole batch's."""
-    loss, aux = loss_fn(state.params, cfg, batch, delay, weights, data_group)
-    grads = sum_over(grads_of(loss, state.params), data_group)
-    flat = flatten(state.params)
-    with torch.no_grad():
-        updates, opt_state = optimizer.update(grads, state.opt_state, flat)
-        muon.apply_updates(flat, updates)
-    aux = {k: all_reduce_sum(v.detach(), data_group) for k, v in aux.items()}
-    aux.update(loss=all_reduce_sum(loss.detach(), data_group),
-               grad_norm=muon.global_norm(grads, shards))
+    `shards` the model-sharded leaves; aux is the whole batch's.  The
+    loss with its gradients is the span `fwd_bwd`, the update with the aux
+    reductions the span `optim` (`utils/profiling.span`)."""
+    with span("fwd_bwd"):
+        loss, aux = loss_fn(state.params, cfg, batch, delay, weights, data_group)
+        grads = sum_over(grads_of(loss, state.params), data_group)
+    with span("optim"):
+        flat = flatten(state.params)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, state.opt_state, flat)
+            muon.apply_updates(flat, updates)
+        aux = {k: all_reduce_sum(v.detach(), data_group) for k, v in aux.items()}
+        aux.update(loss=all_reduce_sum(loss.detach(), data_group),
+                   grad_norm=muon.global_norm(grads, shards))
     return TrainState(state.params, opt_state, state.step + 1), aux

@@ -103,8 +103,6 @@ def test_stage_timers_accumulate_and_report():
     assert s["matmul"]["p50_ms"] >= 0
     rep = t.report()
     assert "matmul" in rep and "p95" in rep
-    assert t.audio_seconds_per_second("matmul", 2.0) > 0
-    assert t.audio_seconds_per_second("absent", 2.0) == 0.0
 
 
 def test_trace_noop_and_real(tmp_path):
