@@ -7,12 +7,18 @@ LM's `generate` and the vocoder's offline decode.
 `VoiceConverter` holds a `params.Converter` and gives it these entry
 points.  The tokenizer and vocoder encode and decode whole utterances in
 float32, on the converter's `float32_trees` (the JAX package's matmuls
-promote bf16 weights against float32 activations).
+promote bf16 weights against float32 activations).  `infer` keeps the
+noise-free prompt of each reference it has met (style, timbre, codec
+codes, content tokens) in a `PromptCache` keyed on the reference's
+samples, and mixes the noise in on every call: a dataset's utterances
+share a few targets, and a hit gives the same output as a miss.
 Random draws (the anonymisation noise, the LM's Gumbel noise) are inputs,
 or come from a `torch.Generator` on the converter's device."""
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,6 +46,66 @@ def apply_noise_mixing(x: torch.Tensor, alpha: float,
     return alpha * x + (1.0 - alpha) * noise
 
 
+def _mixed(style: torch.Tensor, timbre: torch.Tensor, alpha: float,
+           generator: Optional[torch.Generator],
+           noise: Optional[Tuple[torch.Tensor, torch.Tensor]]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Style, then timbre, noise-mixed with `alpha` (`noise`: the two
+    standard normal draws, else drawn from `generator` in that order)."""
+    ns, nt = noise if noise is not None else (None, None)
+    return (apply_noise_mixing(style, alpha, generator, ns),
+            apply_noise_mixing(timbre, alpha, generator, nt))
+
+
+def _prompt_key(ref_wavs: Sequence, collate: str):
+    """The prompt cache's key of the references: `collate` and, for each
+    in order, its dtype, shape and the SHA-1 of its float32 samples as
+    `VoiceConverter._tensor` converts them; None if one is a tensor off
+    the host (keying it would copy it there and wait for the card)."""
+    key = [collate]
+    for w in ref_wavs:
+        if torch.is_tensor(w):
+            if w.device.type != "cpu":
+                return None
+            dtype, a = w.dtype, w.detach().to(torch.float32).contiguous().numpy()
+        else:
+            a = np.asarray(w)
+            dtype, a = a.dtype, np.ascontiguousarray(a, np.float32)
+        key.append((str(dtype).replace("torch.", ""), a.shape, hashlib.sha1(a).digest()))
+    return tuple(key)
+
+
+PROMPT_CACHE_ENTRIES = 64  # references a converter keeps, about 25 KB each at the published widths
+
+
+class PromptCache:
+    """A least-recently-used map of at most PROMPT_CACHE_ENTRIES from a
+    reference's key to its noise-free prompt (style, timbre, codes,
+    tokens).  `hits` and `misses` count the lookups of every converter in
+    the process, as the kernel wrappers count `.launches`; a lookup
+    without a key is a miss."""
+
+    hits = 0
+    misses = 0
+
+    def __init__(self):
+        self.entries: OrderedDict = OrderedDict()
+
+    def get(self, key) -> Optional[Tuple[torch.Tensor, ...]]:
+        entry = self.entries.get(key) if key is not None else None
+        if entry is None:
+            PromptCache.misses += 1
+        else:
+            PromptCache.hits += 1
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry: Tuple[torch.Tensor, ...]) -> None:
+        self.entries[key] = entry
+        while len(self.entries) > PROMPT_CACHE_ENTRIES:
+            self.entries.popitem(last=False)
+
+
 class VoiceConverter:
     """The offline and prompt-side entry points on a converter's trees."""
 
@@ -47,6 +113,7 @@ class VoiceConverter:
         self.converter = converter
         self.cfg = converter.cfg
         self.device = converter.device
+        self.prompt_cache = PromptCache()
 
     def _tensor(self, wav) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(wav, np.float32) if not torch.is_tensor(wav) else wav)
@@ -84,15 +151,11 @@ class VoiceConverter:
         return speaker_encoder.tokenize_wav(self.converter.speaker_params, self.cfg.speaker, wav16k,
                                             lens)[0]
 
-    def speaker_embeddings(self, ref_wavs: Sequence, alpha: float,
-                           generator: Optional[torch.Generator] = None,
-                           collate: str = "concat_mel",
-                           noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(style, timbre) of one or more references, fused by concatenating
-        the audio ("concat_mel") or by averaging per-reference embeddings
-        ("avg"), then noise-mixed with `alpha` (`noise`: the two standard
-        normal draws, else drawn from `generator`)."""
+    def noise_free_embeddings(self, ref_wavs: Sequence, collate: str = "concat_mel"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(style (1, 192), timbre (1, 32, 128)) of one or more references
+        before the noise, fused by concatenating the audio ("concat_mel")
+        or by averaging per-reference embeddings ("avg")."""
         sr, rr = self.cfg.sample_rate, self.cfg.resample_rate
         if collate == "avg" and len(ref_wavs) > 1:
             styles, timbres = [], []
@@ -100,15 +163,19 @@ class VoiceConverter:
                 w16 = resample(self._tensor(w)[None], sr, rr)
                 styles.append(self.style_vector(w16))
                 timbres.append(self.timbre_latents(w16))
-            style = torch.stack(styles).mean(dim=0)
-            timbre = torch.stack(timbres).mean(dim=0)
-        else:
-            w16 = resample(torch.cat([self._tensor(w) for w in ref_wavs])[None], sr, rr)
-            style = self.style_vector(w16)
-            timbre = self.timbre_latents(w16)
-        ns, nt = noise if noise is not None else (None, None)
-        return (apply_noise_mixing(style, alpha, generator, ns),
-                apply_noise_mixing(timbre, alpha, generator, nt))
+            return torch.stack(styles).mean(dim=0), torch.stack(timbres).mean(dim=0)
+        w16 = resample(torch.cat([self._tensor(w) for w in ref_wavs])[None], sr, rr)
+        return self.style_vector(w16), self.timbre_latents(w16)
+
+    def speaker_embeddings(self, ref_wavs: Sequence, alpha: float,
+                           generator: Optional[torch.Generator] = None,
+                           collate: str = "concat_mel",
+                           noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(style, timbre) of one or more references (`noise_free_embeddings`),
+        noise-mixed with `alpha` (`noise`: the two standard normal draws,
+        else drawn from `generator`)."""
+        return _mixed(*self.noise_free_embeddings(ref_wavs, collate), alpha, generator, noise)
 
     # ------------------------------------------------------------------
     # conversion
@@ -124,10 +191,13 @@ class VoiceConverter:
         source tokens padded to a multiple of 16, then `arvc.generate` and
         the vocoder.  Returns the waveform at 44.1 kHz (numpy).  `spk_noise`
         and `lm_noise` are the random draws of `speaker_embeddings` and
-        `arvc.generate`, else drawn from `generator`.  With the recorder on
-        (`utils/profiling.tracing`) the call is the span `infer`, its stages
-        the spans `prompt`, `encode`, `generate`, `vocode` and `to_host`
-        (the host's one wait on the card)."""
+        `arvc.generate`, else drawn from `generator`.  The references'
+        noise-free prompt comes from the converter's `prompt_cache` when
+        their samples, crop and `collate` have been met before; the noise
+        is drawn on every call, so a hit and a miss give the same output.
+        With the recorder on (`utils/profiling.tracing`) the call is the
+        span `infer`, its stages the spans `prompt`, `encode`, `generate`,
+        `vocode` and `to_host` (the host's one wait on the card)."""
         with span("infer"):
             if isinstance(ref_wavs, np.ndarray) or torch.is_tensor(ref_wavs):
                 ref_wavs = [ref_wavs]
@@ -140,11 +210,16 @@ class VoiceConverter:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             sampling = sampling or self.cfg.sampling
             with span("prompt"):
-                style, timbre = self.speaker_embeddings(ref_wavs, alpha, generator, collate,
-                                                        spk_noise)
-                ref_cat = torch.cat([self._tensor(w) for w in ref_wavs])[None]
-                ref_codes = self.audio_codes(ref_cat)
-                ref_tokens = self.content_tokens(ref_cat)
+                key = _prompt_key(ref_wavs, collate)
+                prompt = self.prompt_cache.get(key)
+                if prompt is None:
+                    ref_cat = torch.cat([self._tensor(w) for w in ref_wavs])[None]
+                    prompt = (*self.noise_free_embeddings(ref_wavs, collate),
+                              self.audio_codes(ref_cat), self.content_tokens(ref_cat))
+                    if key is not None:
+                        self.prompt_cache.put(key, prompt)
+                style, timbre, ref_codes, ref_tokens = prompt
+                style, timbre = _mixed(style, timbre, alpha, generator, spk_noise)
             with span("encode"):
                 src_tokens = self.content_tokens(self._tensor(src_wav)[None])
             Tr = max(ref_tokens.shape[1] // 8 * 8, min(8, ref_tokens.shape[1]))

@@ -19,8 +19,9 @@ named `sva.<name>` in the profiler's records, so a profiler running at
 the same time shows the spans in its timeline over the operations and
 launches they enclose.  `Recorder.export()`, after the block, resolves the
 events (one synchronize) and returns plain data: each span's name, ids,
-host ms and device ms (None without events), and each kernel wrapper's
-launches over the block.
+host ms and device ms (None without events), each kernel wrapper's
+launches over the block, and the hits and misses of `VoiceConverter.infer`'s
+prompt cache over it.
 
 `trace()` wraps `torch.profiler` with the recorder on and writes a Chrome
 trace `trace.json`, viewable in Perfetto or chrome://tracing, and the
@@ -156,6 +157,13 @@ def _kernel_launches() -> Dict[str, int]:
     return {w.__name__: w.launches for w in kernel_wrappers().values()}
 
 
+def _prompt_cache_counts() -> Dict[str, int]:
+    """The prompt cache's lookups so far (`runtime/pipeline.PromptCache`)."""
+    from streamvoiceanon_tpu_torch.runtime.pipeline import PromptCache
+
+    return {"hits": PromptCache.hits, "misses": PromptCache.misses}
+
+
 def _event() -> "torch.cuda.Event":
     try:
         return _EVENTS.pop()
@@ -198,14 +206,17 @@ class _Span:
 
 
 class Recorder:
-    """The spans of one traced stretch (`tracing()`) and the kernels' launches in it."""
+    """The spans of one traced stretch (`tracing()`), the kernels' launches
+    and the prompt cache's lookups in it."""
 
     def __init__(self):
         self.spans: List[_Span] = []
         self.launches: Dict[str, int] = {}
+        self.prompt_cache: Dict[str, int] = {}
         self._ids = itertools.count(1)
         self._local = threading.local()
         self._launches0 = _kernel_launches()
+        self._prompt0 = _prompt_cache_counts()
         self._resolved = False
 
     def _stack(self) -> List[_Span]:
@@ -216,6 +227,7 @@ class Recorder:
 
     def _stop(self) -> None:
         self.launches = {k: n - self._launches0[k] for k, n in _kernel_launches().items()}
+        self.prompt_cache = {k: n - self._prompt0[k] for k, n in _prompt_cache_counts().items()}
 
     def _resolve(self) -> None:
         """Device ms of every finished span, after one synchronize; the
@@ -232,8 +244,9 @@ class Recorder:
 
     def export(self) -> Dict:
         """{"spans": [{name, id, parent, request, host_ms, device_ms}],
-        "launches": {kernel wrapper: n}} of the finished spans, once the
-        traced stretch has ended."""
+        "launches": {kernel wrapper: n}, "prompt_cache": {"hits": n,
+        "misses": n}} of the finished spans, once the traced stretch has
+        ended."""
         if _recorder is self:
             raise RuntimeError("export() while the recorder is on")
         if not self._resolved:
@@ -242,7 +255,7 @@ class Recorder:
                            "request": s.request, "host_ms": (s.t1 - s.t0) * 1e-6,
                            "device_ms": s.device_ms}
                           for s in self.spans if s.t1 is not None],
-                "launches": dict(self.launches)}
+                "launches": dict(self.launches), "prompt_cache": dict(self.prompt_cache)}
 
     def summary(self) -> Dict[str, Dict[str, Dict[str, float]]]:
         """{span name: {"host": summarize's fields, "device": the same
