@@ -12,7 +12,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
-import importlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -81,18 +81,32 @@ def cell(bench: Dict, name: str, root: Path = ROOT) -> Cell:
                 [m for m in bench["per_layer"] if mine(m)])
 
 
-def driver(traffic: Dict):
-    """The driver module that runs a traffic mix's kind (`drivers/<driver>.py`)."""
-    return importlib.import_module(f"portbench.drivers.{traffic['driver']}")
+def load_module(path: Path) -> types.ModuleType:
+    """The Python file at `path`, executed once as a module and kept in
+    `sys.modules` under a name made from its resolved path, so that every
+    caller, and a test that patches it, gets the same object."""
+    path = Path(path).resolve()
+    name = f"portbench_file_{hashlib.sha1(str(path).encode()).hexdigest()[:16]}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
+
+
+def driver(traffic: Dict, root: Path = ROOT):
+    """The driver module that runs a traffic mix's kind, `drivers/<driver>.py` under `root`."""
+    return load_module(root / "drivers" / f"{traffic['driver']}.py")
 
 
 def reader(metric: str, root: Path = ROOT) -> Callable:
     """The reader of a per-layer metric, `metrics/<name>.py`'s `read`."""
-    path = root / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(root / "metrics" / f"{metric}.py").read
 
 
 def port_config(d: Dict):
@@ -118,7 +132,7 @@ def port_config(d: Dict):
     return build(C.PipelineConfig, d)
 
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,28 @@ The cell, its configuration, its traffic mix and its metrics come from
 `portbench/`: `configs/<config>.json`, `traffic/<traffic>.json` (whose
 `driver` names `drivers/<driver>.py`), `limits/<cell>.json` (the limits of
 the comparison that decides `correct`) and `metrics/<metric>.py` (the
-reader of each per-layer metric).
+reader of each per-layer metric).  The harness's own CPU tests find what
+they know of a kind of cell, by the traffic's `driver`, in
+`tests/kinds/<driver>.py`.
+
+A cell of a new kind is added as new files and `BENCHMARK.json` entries
+only.  Beside its entries it brings:
+
+- `drivers/<driver>.py`, whose `run(ctx)` drives the port through the
+  window and returns its readings, and which with `ctx.control` also puts
+  the reference one precision down in the program's place and returns its
+  numbers under `control_<name>` (`tests/test_portbench_control.py`);
+- `tests/kinds/<driver>.py`: `tiny_config` and `tiny_traffic`, which cut
+  a configuration and a traffic mix of the kind to a CPU test's size,
+  `FAULTS`, each `fault(monkeypatch, root)` breaking the timed path
+  underneath, and `check_config(config, root)`, which holds a
+  configuration file against what the program builds from it;
+- `configs/<config>.json` and its entry;
+- `traffic/<traffic>.json`, with `driver`;
+- `limits/<cell>.json`;
+- `metrics/<metric>.py` for each per-layer metric;
+- the plain reference under `reference/`, which imports nothing of the
+  program.
 
 With --trace 0 the line carries the cell's end-to-end metrics and
 `setup_s`; with --trace 1 its per-layer metrics, the card's busy and
@@ -55,7 +76,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
     limits = core.load_json(root / "limits" / f"{name}.json")
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    drv = core.driver(cell.traffic)
+    drv = core.driver(cell.traffic, root)
     out = drv.run(Context(cell, seed, seconds, trace, device, control))
     from portbench.drivers import common
 

@@ -8,14 +8,14 @@ import torch
 from portbench import core, voice
 from portbench.drivers import common
 from portbench.reference import codec, lm, nn as rnn, speaker
-from portbench.tests import tiny
+from portbench.tests import converter
 
 
 @pytest.fixture(scope="module")
 def setup():
     torch.set_num_threads(2)
     cfg = core.load_json(core.ROOT / "configs" / "sva-convert.json")
-    cfg["pipeline"] = tiny.tiny_pipeline(cfg["pipeline"])
+    cfg["pipeline"] = converter.tiny_pipeline(cfg["pipeline"])
     cfg["dtypes"] = dict(cfg["dtypes"], lm="float32")
     trees = common.draw_trees(cfg, 2 ** 33 + 1, "cpu")
     cv = common.converter(cfg, trees, "cpu")

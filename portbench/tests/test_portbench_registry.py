@@ -1,13 +1,15 @@
-"""Every cell resolves to its files by name; a new cell needs only new files."""
+"""Every cell resolves to its files by name; a new cell, and a new kind of
+cell, needs only new files."""
 
 import json
+import shutil
 
 import pytest
 import torch
 
 from portbench import core
 from portbench.run import run_cell
-from portbench.tests import tiny
+from portbench.tests import steps, tiny
 
 BENCH = tiny.bench()
 
@@ -22,14 +24,7 @@ def one_thread():
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_cell_resolves(name):
-    cell = core.cell(BENCH, name)
-    assert cell.config["name"] == cell.workload["config"]
-    assert core.driver(cell.traffic).run
-    assert (core.ROOT / "limits" / f"{name}.json").exists()
-    assert any(m["name"] == "setup_s" for m in cell.end_to_end)
-    assert len(cell.end_to_end) >= 2 and cell.per_layer
-    for m in cell.per_layer:
-        assert callable(core.reader(m["name"]))
+    steps.resolves(BENCH, name, core.ROOT)
 
 
 def test_every_metric_names_a_reported_end_to_end_metric():
@@ -40,13 +35,11 @@ def test_every_metric_names_a_reported_end_to_end_metric():
 
 
 def test_config_files_match_the_port_config():
-    """Each configuration file builds the port's PipelineConfig field for field."""
-    import dataclasses
-
+    """Each configuration file holds what the program builds from it, by
+    its kind's check (the converter's kinds: the port's PipelineConfig
+    field for field)."""
     for c in BENCH["configs"]:
-        d = core.load_json(core.ROOT.parent / c["file"])
-        cfg = core.port_config(d["pipeline"])
-        assert json.loads(json.dumps(dataclasses.asdict(cfg))) == d["pipeline"]
+        steps.config_matches(BENCH, c["name"], core.ROOT)
 
 
 def test_a_throwaway_cell_needs_only_new_files(tmp_path):
@@ -73,3 +66,39 @@ def test_a_throwaway_cell_needs_only_new_files(tmp_path):
     res = run_cell(bench, "throwaway-cell", 2 ** 40 + 3, 1.5, True, "cpu", root=root)
     assert "throwaway_ms" in res["metrics"]
     assert res["correct"], res["checks"]
+
+
+def test_a_throwaway_kind_needs_only_new_files(tmp_path):
+    """A cell of a kind the benchmark has no driver for (`tests/throwaway/`:
+    a plain forward in float16 checked against float64, its configuration
+    with no `pipeline`), added to a copy of `portbench/` as new files and
+    entries only, passes the checks each cell of BENCHMARK.json gets:
+    it resolves, runs tiny at --trace 0 and 1 with `correct` true, has each
+    of its faults caught, and its configuration check holds."""
+    extra = tiny.REPO / "portbench" / "tests" / "throwaway"
+    src = tmp_path / "src" / "portbench"
+    shutil.copytree(tiny.REPO / "portbench", src, ignore=shutil.ignore_patterns(
+        ".cache", "__pycache__", "throwaway"))
+    for f in extra.rglob("*"):
+        if f.is_file() and f.name != "entries.json" and "__pycache__" not in f.parts:
+            dst = src / f.relative_to(extra)
+            assert not dst.exists(), dst
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(f, dst)
+    bench = json.loads(json.dumps(BENCH))
+    entries = json.loads((extra / "entries.json").read_text())
+    for key, added in entries.items():
+        assert not {e["name"] for e in added} & {e["name"] for e in bench[key]}
+        bench[key] += added
+    root = tiny.make_root(tmp_path / "t", bench, src=src)
+    name = "throwaway-mlp-rows"
+    cfg = core.cell(bench, name, root).config
+    assert "pipeline" not in cfg and core.DTYPES[cfg["dtype"]] == torch.float16
+    steps.resolves(bench, name, root)
+    for trace in (0, 1):
+        line = steps.tiny_line(bench, name, root, trace, 2 ** 40 + 5)
+        assert ("throwaway_forward_ms" if trace else "rows_per_s") in line["metrics"]
+    for fault in tiny.kind(bench, name, root).FAULTS:
+        with pytest.MonkeyPatch.context() as mp:
+            steps.fault_caught(bench, name, root, fault, mp)
+    steps.config_matches(bench, "throwaway-mlp", root)

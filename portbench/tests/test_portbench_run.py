@@ -9,11 +9,9 @@ import sys
 import pytest
 import torch
 
-from portbench.run import run_cell
-from portbench.tests import tiny
+from portbench.tests import steps, tiny
 
 BENCH = tiny.bench()
-KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 
 
 @pytest.fixture(scope="module")
@@ -22,27 +20,10 @@ def root(tmp_path_factory):
     return tiny.make_root(tmp_path_factory.mktemp("pb"))
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
+@pytest.mark.parametrize("name", tiny.kinded(BENCH))
 @pytest.mark.parametrize("trace", [0, 1])
 def test_tiny_run_line(root, name, trace):
-    res = run_cell(BENCH, name, 2 ** 35 + 17, 2.0, bool(trace), "cpu", root=root)
-    line = json.loads(json.dumps(res))
-    want = KEYS | ({"breakdown"} if trace else set())
-    assert set(line) == want
-    assert list(line)[-1] == "checks"
-    assert set(line["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
-    assert line["correct"], line["checks"]
-    assert line["attempted"] > 0 and line["failed"] == 0
-    cell = [w for w in BENCH["workloads"] if w["name"] == name][0]
-    if not trace:
-        names = {m["name"] for m in BENCH["end_to_end"]
-                 if "workloads" not in m or name in m["workloads"]}
-        assert set(line["metrics"]) == names
-    for m in line["metrics"].values():
-        assert set(m) == {"value", "unit"}
-    for c in line["checks"].values():
-        assert c["value"] <= c["limit"]
-    assert cell["chips"] == 1
+    steps.tiny_line(BENCH, name, root, trace, 2 ** 35 + 17)
 
 
 def test_no_card_no_result(tmp_path):
@@ -67,8 +48,8 @@ def test_loads_no_jax(tmp_path):
         "from portbench.run import run_cell\n"
         "from portbench import core\n"
         f"root = tiny.make_root(Path({str(tmp_path)!r}))\n"
-        "for w in tiny.bench()['workloads']:\n"
-        "    run_cell(tiny.bench(), w['name'], 5, 1.0, False, 'cpu', root=root)\n"
+        "for name in tiny.kinded(tiny.bench(), root):\n"
+        "    run_cell(tiny.bench(), name, 5, 1.0, False, 'cpu', root=root)\n"
         "print(json.dumps(core.forbidden_modules()))\n")
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=600, env=dict(os.environ, JAX_PLATFORMS="cpu"))

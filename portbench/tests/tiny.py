@@ -1,66 +1,62 @@
 """A tiny copy of the benchmark for CPU tests: `portbench/` copied into a
-temporary root, its configuration cut to a few channels and layers, its
-traffic to a few seconds, and cells resolved from a BENCHMARK object."""
+temporary root, each configuration and traffic mix cut by the kind of the
+cells that use it (`tests/kinds/<driver>.py`, found by the traffic's
+`driver`), and cells resolved from a BENCHMARK object."""
 
 from __future__ import annotations
 
-import copy
 import json
 import shutil
+import types
 from pathlib import Path
+
+from portbench import core
 
 REPO = Path(__file__).resolve().parents[2]
 
 
-def tiny_pipeline(p: dict) -> dict:
-    p = copy.deepcopy(p)
-    bb = {"input_channels": 160, "depths": [1, 1, 1, 1], "dims": [16, 16, 16, 32],
-          "kernel_size": 7, "mlp_ratio": 4.0, "layer_scale_init_value": 1e-6,
-          "gin_channels": 0, "drop_path_rate": 0.0}
-    t = p["tokenizer"]
-    t["backbone"] = dict(bb)
-    t["quantizer"]["input_dim"] = 32
-    t["transformer"].update(n_layer=2, n_head=2, dim=32, intermediate_size=64, head_dim=16,
-                            window_size=16)
-    t["head"].update(input_channels=32)
-    v = p["vocoder"]
-    v["backbone"] = dict(bb)
-    v["quantizer"]["input_dim"] = 32
-    v["head"].update(num_mels=32, upsample_initial_channel=32)
-    p["arvc"]["decoder"].update(
-        n_layer=2, n_head=2, n_local_heads=2, dim=32, intermediate_size=64, head_dim=16,
-        max_seq_len=512, n_fast_layer=1, fast_dim=32, fast_n_head=2, fast_n_local_heads=2,
-        fast_head_dim=16, fast_intermediate_size=64, cond_input_dim=32)
-    p["arvc"]["model_dim"] = 32
-    p["campplus"].update(block_layers=[1, 1, 1], init_channels=32)
-    p["speaker"].update(ecapa_channels=64)
-    p["stream"].update(max_prompt_frames=32, max_seq_frames=64, buffer_frames=8)
-    return p
-
-
-def make_root(tmp: Path) -> Path:
-    """A tiny benchmark root under tmp; returns its `portbench` directory."""
-    root = tmp / "portbench"
-    shutil.copytree(REPO / "portbench", root, ignore=shutil.ignore_patterns(
-        ".cache", "__pycache__", "tests"))
-    for f in (root / "configs").glob("*.json"):
-        cfg = json.loads(f.read_text())
-        cfg["pipeline"] = tiny_pipeline(cfg["pipeline"])
-        f.write_text(json.dumps(cfg))
-    edits = {"vpc-testclean": dict(ref_seconds=2.0, warmup_seconds=[0.5], profile_s=0.3,
-                                   check_utts=3, lengths={"count": 4, "mean_s": 1.5,
-                                                          "sigma": 0.3, "min_s": 0.6,
-                                                          "max_s": 2.5}),
-             "train-emilia": dict(batch_size=2, profile_s=0.3,
-                                  lengths={"count": 10, "mean_s": 1.0, "sigma": 0.3,
-                                           "min_s": 0.5, "max_s": 1.5})}
-    for name, ed in edits.items():
-        f = root / "traffic" / f"{name}.json"
-        tr = json.loads(f.read_text())
-        tr.update(ed)
-        f.write_text(json.dumps(tr))
-    return root
-
-
 def bench() -> dict:
     return json.loads((REPO / "BENCHMARK.json").read_text())
+
+
+def kind_file(bench: dict, name: str, root: Path = core.ROOT) -> Path:
+    """Where the tests' knowledge of the cell `name`'s kind lies:
+    `tests/kinds/<driver>.py` under root, for the driver its traffic names."""
+    return root / "tests" / "kinds" / f"{core.cell(bench, name, root).traffic['driver']}.py"
+
+
+def kinded(bench: dict, root: Path = core.ROOT) -> list:
+    """The cells whose kind file is there.  A cell without one has no tiny
+    run, fault case or configuration check: `test_cell_resolves` fails for
+    it, naming the file."""
+    return [w["name"] for w in bench["workloads"] if kind_file(bench, w["name"], root).is_file()]
+
+
+def kind(bench: dict, name: str, root: Path = core.ROOT) -> types.ModuleType:
+    """The kind of the cell `name` (`kind_file`), loaded as the drivers are."""
+    path = kind_file(bench, name, root)
+    if not path.is_file():
+        raise FileNotFoundError(f"cell {name!r} needs the kind file {path}")
+    return core.load_module(path)
+
+
+def make_root(tmp: Path, benchmark: dict = None, src: Path = REPO / "portbench") -> Path:
+    """A tiny benchmark root under tmp, copied from `src` (the repo's
+    `portbench/` unless given); returns its `portbench` directory.  Only
+    the cells of `kinded` are cut."""
+    benchmark = benchmark or bench()
+    root = tmp / "portbench"
+    shutil.copytree(src, root, ignore=shutil.ignore_patterns(".cache", "__pycache__", "tests"))
+    shutil.copytree(src / "tests" / "kinds", root / "tests" / "kinds",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    files = {c["name"]: root.parent / c["file"] for c in benchmark["configs"]}
+    wl = {w["name"]: w for w in benchmark["workloads"]}
+    cut = set()
+    for name in kinded(benchmark, root):
+        k = kind(benchmark, name, root)
+        for f, fn in ((files[wl[name]["config"]], k.tiny_config),
+                      (root / "traffic" / f"{wl[name]['traffic']}.json", k.tiny_traffic)):
+            if f not in cut:
+                f.write_text(json.dumps(fn(json.loads(f.read_text()))))
+                cut.add(f)
+    return root
