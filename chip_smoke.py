@@ -3774,7 +3774,7 @@ def teacher_check(device, wcfg, seconds: float = 4.0):
     params = wn.init_params(torch.Generator(device=device).manual_seed(91), wcfg)
     n_par = sum(t.numel() for t in flatten(params).values())
     teacher = W2vBertTeacher(layer=TEACHER_LAYER, native_params=params, native_cfg=wcfg,
-                             device=device)
+                             device=device, dtype=torch.float32)
     from streamvoiceanon_tpu_torch.audio.resample import resample
 
     n16 = int(seconds * 16000)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from streamvoiceanon_tpu_torch.audio import fbank as fbank_mod
 from streamvoiceanon_tpu_torch.config import CAMPPlusConfig
 
 
@@ -100,6 +101,17 @@ def apply(params: Dict, cfg: CAMPPlusConfig, feat: torch.Tensor,
     var = ((x - mean[:, :, None]) ** 2 * mask).sum(dim=2) / torch.clamp(n - 1.0, min=1.0)
     stats = torch.cat([mean, torch.sqrt(var)], dim=-1)
     return _bn(params["dense_bn"], stats @ params["dense_w"][:, :, 0].t())
+
+
+def style_of(params: Dict, cfg: CAMPPlusConfig, w16: torch.Tensor) -> torch.Tensor:
+    """The trainers' style vector (B, embedding_size) of a padded batch of
+    16 kHz audio (B, T): CAM++ over the Kaldi fbank, mean-normalised over
+    each row's frames, with every frame of the padded batch valid (the
+    lengths half its fbank frames, the pooled rate)."""
+    feat = fbank_mod.fbank(w16)
+    feat = feat - feat.mean(dim=1, keepdim=True)
+    lens = torch.full((w16.shape[0],), feat.shape[1] // 2, dtype=torch.int32, device=w16.device)
+    return apply(params, cfg, feat, lens)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,11 @@ carries such a tree to torch, where the depthwise conv becomes PyTorch's
 Kaldi 80-bin power fbank with HF's pre-emphasis, per-utterance per-bin
 mean and variance (ddof 1) over the valid frames, stride-2 stacking to 160.
 
+`apply` computes in its weights' dtype: with float16 weights (the
+content encoder's frozen teacher, `models/w2v_bert.py`) every matrix
+product, the attention and the convolution run in float16, and each
+LayerNorm takes its statistics in float32.
+
 All of it is plain PyTorch: the JAX package computes it outside any Pallas
 kernel.
 """
@@ -53,10 +58,10 @@ class W2VBertConfig:
 
 
 def _ln(p, x, eps):
-    """LayerNorm with the biased variance, as `jnp.var`."""
-    m = x.mean(-1, keepdim=True)
-    v = ((x - m) ** 2).mean(-1, keepdim=True)
-    return (x - m) * torch.rsqrt(v + eps) * p["w"] + p["b"]
+    """LayerNorm with the biased variance, as `jnp.var`, in x's dtype: on
+    half tensors its statistics, scale and shift are taken in float32, as
+    `torch.nn.LayerNorm` takes them."""
+    return F.layer_norm(x, (x.shape[-1],), p["w"].to(x.dtype), p["b"].to(x.dtype), eps)
 
 
 def _lin(p, x):
@@ -121,10 +126,14 @@ def apply(params: Dict, cfg: W2VBertConfig, feats: torch.Tensor,
           mask: Optional[torch.Tensor] = None,
           num_layers: Optional[int] = None) -> torch.Tensor:
     """feats (B, T, feat_dim), mask (B, T) 1 = valid -> the hidden states
-    after `num_layers` conformer blocks (None: all of them).  Padded keys
-    take a bias of the dtype's most negative finite value, as in the JAX
-    package (finite, not -inf)."""
-    x = _lin(params["proj"], _ln(params["fp_ln"], feats, cfg.eps))
+    after `num_layers` conformer blocks (None: all of them), in the
+    weights' dtype: the featurisation's LayerNorm runs on `feats` as they
+    come (float32 from `stacked_features`) and its output is cast to the
+    weights' dtype at the projection.  Padded keys take a bias of the
+    dtype's most negative finite value, as in the JAX package (finite, not
+    -inf)."""
+    x = _lin(params["proj"],
+             _ln(params["fp_ln"], feats, cfg.eps).to(params["proj"]["w"].dtype))
     bias = pad_mask = None
     if mask is not None:
         pad_mask = mask.to(x.dtype)

@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from streamvoiceanon_tpu_torch import resolve_device
-from streamvoiceanon_tpu_torch.audio import fbank as fbank_mod
 from streamvoiceanon_tpu_torch.audio.resample import resample
 from streamvoiceanon_tpu_torch.config import PipelineConfig
 from streamvoiceanon_tpu_torch.models import (arvc, campplus, speaker_encoder, tokenizer,
@@ -137,10 +136,7 @@ class ARVCTrainer:
         content = tokenizer.encode(self.frozen["tokenizer"], self.cfg.tokenizer, waves)
         codes = vocoder.encode(self.frozen["vocoder"], self.cfg.vocoder, waves)[0]
         if self.frozen["campplus"] is not None:
-            feat = fbank_mod.fbank(w16)
-            feat = feat - feat.mean(dim=1, keepdim=True)
-            lens = torch.full((B,), feat.shape[1] // 2, dtype=torch.int32, device=self.device)
-            style = campplus.apply(self.frozen["campplus"], self.cfg.campplus, feat, lens)
+            style = campplus.style_of(self.frozen["campplus"], self.cfg.campplus, w16)
         else:
             style = torch.zeros((B, self.cfg.arvc.style_dim), device=self.device)
         if self.frozen["speaker"] is not None:

@@ -27,6 +27,12 @@ and a replicated leaf's once, and Muon orthogonalises the whole matrix
 kept), as the JAX package's update of a sharded leaf computes.  The
 element-wise transformations need nothing more.
 
+The element-wise transformations (the clip, AdamW, `apply_updates`) run
+over all their leaves at once (`torch._foreach_*`): a few launches a step
+in place of a few for every leaf, the same arithmetic element for element.
+The global norm is the norm of the leaves' norms, summed in float64:
+equal to the sum of squares' root up to float32's rounding.
+
 A transformation is a pair (init, update): init(params) gives its state,
 update(grads, state, params) gives (updates, state').  Step counters are
 host integers, so no device value is read back to schedule; the scalars
@@ -85,10 +91,13 @@ def newton_schulz5(g: torch.Tensor, steps: int = 6) -> torch.Tensor:
 
 
 def global_norm(tree: Flat, shards: Optional[Shards] = None) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares; a
-    model-sharded leaf's summed over its group."""
+    """sqrt of the sum over leaves of each leaf's sum of squares (unsharded:
+    the norm of the leaves' norms, `torch._foreach_norm` summing in float64,
+    with no copy of the leaves), in float32; a model-sharded leaf's summed
+    over its group."""
     if shards is None or shards.group is None:
-        return torch.sqrt(sum(torch.sum(t * t) for t in tree.values()))
+        norms = torch._foreach_norm(list(tree.values()), 2, dtype=torch.float64)
+        return torch.linalg.vector_norm(torch.stack(norms)).float()
     whole = sum(torch.sum(t * t) for k, t in tree.items() if k not in shards.axes)
     split = sum(torch.sum(t * t) for k, t in tree.items() if k in shards.axes)
     return torch.sqrt(whole + all_reduce_sum(split, shards.group))
@@ -98,8 +107,12 @@ def clip_by_global_norm(max_norm: float,
                         shards: Optional[Shards] = None) -> GradientTransformation:
     def update(grads, state, params=None):
         norm = global_norm(grads, shards)
-        keep = norm < max_norm
-        return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}, state
+        keep, one = norm < max_norm, torch.ones_like(norm)
+        # g / 1 * 1 where kept, else (g / norm) * max_norm, as optax scales
+        out = torch._foreach_mul(
+            torch._foreach_div(list(grads.values()), torch.where(keep, one, norm)),
+            torch.where(keep, one, torch.full_like(norm, max_norm)))
+        return dict(zip(grads, out)), state
 
     return GradientTransformation(lambda params: (), update)
 
@@ -117,13 +130,15 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         count = state["count"] + 1
         bc1 = _f32(np.float32(1) - np.float32(b1) ** np.float32(count))
         bc2 = _f32(np.float32(1) - np.float32(b2) ** np.float32(count))
-        mu, nu, out = {}, {}, {}
-        for k, g in grads.items():
-            mu[k] = (1 - b1) * g + b1 * state["mu"][k]
-            nu[k] = (1 - b2) * (g * g) + b2 * state["nu"][k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
-            out[k] = -lr * (u + weight_decay * params[k])
-        return out, {"count": count, "mu": mu, "nu": nu}
+        keys = list(grads)
+        g, m0, v0, p = ([t[k] for k in keys] for t in (grads, state["mu"], state["nu"], params))
+        add, mul, div = torch._foreach_add, torch._foreach_mul, torch._foreach_div
+        mu = add(mul(g, 1 - b1), mul(m0, b1))
+        nu = add(mul(mul(g, g), 1 - b2), mul(v0, b2))
+        u = div(div(mu, bc1), add(torch._foreach_sqrt(div(nu, bc2)), eps))
+        out = mul(add(u, mul(p, weight_decay)), -lr)
+        return (dict(zip(keys, out)),
+                {"count": count, "mu": dict(zip(keys, mu)), "nu": dict(zip(keys, nu))})
 
     return GradientTransformation(init, update)
 
@@ -243,8 +258,7 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 def apply_updates(params: Flat, updates: Flat) -> None:
     """p += u in place, so that every holder of a parameter tensor (the
     decode kernels read raw pointers) sees the new values."""
-    for k, p in params.items():
-        p.add_(updates[k])
+    torch._foreach_add_(list(params.values()), [updates[k] for k in params])
 
 
 def exp_decay_schedule(lr: float, gamma: float = 0.999997,

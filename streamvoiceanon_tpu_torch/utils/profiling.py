@@ -20,8 +20,10 @@ the same time shows the spans in its timeline over the operations and
 launches they enclose.  `Recorder.export()`, after the block, resolves the
 events (one synchronize) and returns plain data: each span's name, ids,
 host ms and device ms (None without events), each kernel wrapper's
-launches over the block, and the hits and misses of `VoiceConverter.infer`'s
-prompt cache over it.
+launches over the block, the hits and misses of `VoiceConverter.infer`'s
+prompt cache over it, and the rows, frames run (padding included) and
+valid frames of the content encoder's teacher over it
+(`models/w2v_bert.W2vBertTeacher.counts`).
 
 `trace()` wraps `torch.profiler` with the recorder on and writes a Chrome
 trace `trace.json`, viewable in Perfetto or chrome://tracing, and the
@@ -164,6 +166,13 @@ def _prompt_cache_counts() -> Dict[str, int]:
     return {"hits": PromptCache.hits, "misses": PromptCache.misses}
 
 
+def _teacher_counts() -> Dict[str, int]:
+    """The w2v-BERT teacher's rows, frames and valid frames so far."""
+    from streamvoiceanon_tpu_torch.models.w2v_bert import W2vBertTeacher
+
+    return dict(W2vBertTeacher.counts)
+
+
 def _event() -> "torch.cuda.Event":
     try:
         return _EVENTS.pop()
@@ -206,17 +215,19 @@ class _Span:
 
 
 class Recorder:
-    """The spans of one traced stretch (`tracing()`), the kernels' launches
-    and the prompt cache's lookups in it."""
+    """The spans of one traced stretch (`tracing()`), the kernels' launches,
+    the prompt cache's lookups and the teacher's frames in it."""
 
     def __init__(self):
         self.spans: List[_Span] = []
         self.launches: Dict[str, int] = {}
         self.prompt_cache: Dict[str, int] = {}
+        self.teacher: Dict[str, int] = {}
         self._ids = itertools.count(1)
         self._local = threading.local()
         self._launches0 = _kernel_launches()
         self._prompt0 = _prompt_cache_counts()
+        self._teacher0 = _teacher_counts()
         self._resolved = False
 
     def _stack(self) -> List[_Span]:
@@ -228,6 +239,7 @@ class Recorder:
     def _stop(self) -> None:
         self.launches = {k: n - self._launches0[k] for k, n in _kernel_launches().items()}
         self.prompt_cache = {k: n - self._prompt0[k] for k, n in _prompt_cache_counts().items()}
+        self.teacher = {k: n - self._teacher0[k] for k, n in _teacher_counts().items()}
 
     def _resolve(self) -> None:
         """Device ms of every finished span, after one synchronize; the
@@ -245,8 +257,8 @@ class Recorder:
     def export(self) -> Dict:
         """{"spans": [{name, id, parent, request, host_ms, device_ms}],
         "launches": {kernel wrapper: n}, "prompt_cache": {"hits": n,
-        "misses": n}} of the finished spans, once the traced stretch has
-        ended."""
+        "misses": n}, "teacher": {"rows": n, "frames": n, "valid_frames":
+        n}} of the finished spans, once the traced stretch has ended."""
         if _recorder is self:
             raise RuntimeError("export() while the recorder is on")
         if not self._resolved:
@@ -255,7 +267,8 @@ class Recorder:
                            "request": s.request, "host_ms": (s.t1 - s.t0) * 1e-6,
                            "device_ms": s.device_ms}
                           for s in self.spans if s.t1 is not None],
-                "launches": dict(self.launches), "prompt_cache": dict(self.prompt_cache)}
+                "launches": dict(self.launches), "prompt_cache": dict(self.prompt_cache),
+                "teacher": dict(self.teacher)}
 
     def summary(self) -> Dict[str, Dict[str, Dict[str, float]]]:
         """{span name: {"host": summarize's fields, "device": the same
